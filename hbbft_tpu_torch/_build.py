@@ -1,0 +1,142 @@
+"""Build, bind and count the port's CUDA kernels.
+
+Each kernel lives in ``csrc/<name>.cu`` with a plain C interface.  At first
+use it is compiled with ``nvcc`` for ``sm_90a`` into
+``hbbft_tpu_torch/build/lib<name>.so`` and loaded with ``ctypes``; tensors
+cross as ``data_ptr()`` ints and the launch goes to PyTorch's current
+stream.  Every C entry point returns the ``cudaGetLastError()`` of its
+launch, and :func:`check` raises on anything but success.
+
+``LAUNCHES`` counts launches per kernel: a wrapper adds one exactly where
+it launches its kernel, so a run can prove the main path went through it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD = os.path.join(_HERE, "build")
+
+# kernel name → (source file, C entry point, its argument types)
+_VP = ctypes.c_void_p
+KERNELS = {
+    "fp_mul_lazy": (
+        "fp_mul_lazy.cu", "hb_fp_mul_lazy",
+        [_VP, _VP, _VP, _VP, ctypes.c_int, _VP],
+    ),
+    "sha3_256": (
+        "keccak.cu", "hb_sha3_256",
+        [_VP, ctypes.c_int64, ctypes.c_int64, _VP, _VP],
+    ),
+}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    src = os.path.join(CSRC, KERNELS[name][0])
+    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+
+
+def _start(name: str):
+    """Start nvcc for one kernel; it writes a temporary file that
+    :func:`_finish` renames into place."""
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = _lib_path(name) + f".{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, KERNELS[name][0])]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: str) -> str:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+    os.replace(tmp, _lib_path(name))
+    return log
+
+
+def build_all(force: bool = False) -> Dict[str, dict]:
+    """Compile every stale kernel, one ``nvcc`` per source, all started
+    together.  Returns ``{name: {"seconds", "ptxas"}}`` for what it built."""
+    with _LOCK:
+        names = [n for n in KERNELS if force or _stale(n)]
+        t0 = time.perf_counter()
+        procs = {n: _start(n) for n in names}
+        out = {}
+        for n, (proc, tmp) in procs.items():
+            log = _finish(n, proc, tmp)
+            out[n] = {
+                "seconds": time.perf_counter() - t0,
+                "ptxas": [ln for ln in log.splitlines() if "ptxas" in ln],
+            }
+        return out
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    hit = _LIBS.get(name)
+    if hit is not None:
+        return hit
+    if _stale(name):
+        build_all()
+    with _LOCK:
+        if name not in _LIBS:
+            cdll = ctypes.CDLL(_lib_path(name))
+            _, entry, argtypes = KERNELS[name]
+            fn = getattr(cdll, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            cdll.hb_error_string.argtypes = [ctypes.c_int]
+            cdll.hb_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = cdll
+    return _LIBS[name]
+
+
+def check(name: str, rc: int) -> None:
+    """Raise on a failed launch (``rc`` is its ``cudaGetLastError()``)."""
+    if rc != 0:
+        msg = lib(name).hb_error_string(rc).decode()
+        raise RuntimeError(f"kernel {name} failed to launch: {msg} ({rc})")
+
+
+def stream_ptr(tensor) -> int:
+    """PyTorch's current stream on ``tensor``'s device, as an int."""
+    import torch
+
+    return torch.cuda.current_stream(tensor.device).cuda_stream

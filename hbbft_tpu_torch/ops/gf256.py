@@ -1,0 +1,240 @@
+"""GF(2^8) arithmetic — host tables and the bit-plane lowering in PyTorch.
+
+Field: GF(2^8) with reducing polynomial x^8+x^4+x^3+x^2+1 (0x11D) and
+generator 2, the ``reed-solomon-erasure`` crate's field (counterpart of
+``hbbft_tpu/ops/gf256.py``).
+
+1. **Host (numpy)** — log/exp tables, matrix construction and inversion.
+2. **Device (torch)** — multiplication by a constant GF(2^8) matrix is
+   linear over GF(2), so it lowers to ONE 0/1 matrix product: expand bytes
+   to bits, multiply by the 8×-expanded bit matrix, take parity (``& 1``),
+   repack.  CUDA's ``torch.matmul`` has no int8 product, so the bit planes
+   are contracted in float32, which is exact: at most k·8 ≤ 2048 ones are
+   summed, far below 2^24.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+GF_POLY = 0x11D  # x^8 + x^4 + x^3 + x^2 + 1
+GF_GEN = 2
+
+# ---------------------------------------------------------------------------
+# Host tables
+# ---------------------------------------------------------------------------
+
+
+def _build_tables():
+    exp = np.zeros(512, dtype=np.uint8)
+    log = np.zeros(256, dtype=np.int32)
+    x = 1
+    for i in range(255):
+        exp[i] = x
+        log[x] = i
+        x <<= 1
+        if x & 0x100:
+            x ^= GF_POLY
+    for i in range(255, 512):
+        exp[i] = exp[i - 255]
+    return exp, log
+
+
+GF_EXP, GF_LOG = _build_tables()
+
+_A = np.arange(256)
+_MUL_TABLE = np.zeros((256, 256), dtype=np.uint8)
+_nz = _A[1:]
+_MUL_TABLE[1:, 1:] = GF_EXP[(GF_LOG[_nz][:, None] + GF_LOG[_nz][None, :]) % 255]
+
+
+def gf_mul(a, b):
+    """Elementwise GF(2^8) multiply (numpy, any broadcastable uint8 shapes)."""
+    a = np.asarray(a, dtype=np.uint8)
+    b = np.asarray(b, dtype=np.uint8)
+    return _MUL_TABLE[a, b]
+
+
+def gf_inv(a):
+    a = np.asarray(a)
+    if np.any(a == 0):
+        raise ZeroDivisionError("GF(2^8) inverse of 0")
+    return GF_EXP[255 - GF_LOG[a]]
+
+
+def gf_pow(a: int, n: int) -> int:
+    if n == 0:
+        return 1
+    if a == 0:
+        return 0
+    return int(GF_EXP[(int(GF_LOG[a]) * n) % 255])
+
+
+def gf_matmul_np(A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """GF(2^8) matrix product (host). A: (r,k), B: (k,c) → (r,c)."""
+    A = np.asarray(A, dtype=np.uint8)
+    B = np.asarray(B, dtype=np.uint8)
+    r, k = A.shape
+    assert k == B.shape[0]
+    out = np.zeros((r, B.shape[1]), dtype=np.uint8)
+    for i in range(k):
+        out ^= _MUL_TABLE[A[:, i][:, None], B[i][None, :]]
+    return out
+
+
+def gf_inv_matrix_np(M: np.ndarray) -> np.ndarray:
+    """Invert a square GF(2^8) matrix by Gauss–Jordan elimination (host)."""
+    M = np.asarray(M, dtype=np.uint8)
+    n = M.shape[0]
+    assert M.shape == (n, n)
+    aug = np.concatenate([M.copy(), np.eye(n, dtype=np.uint8)], axis=1)
+    for col in range(n):
+        piv = col + int(np.argmax(aug[col:, col] != 0))
+        if aug[piv, col] == 0:
+            raise np.linalg.LinAlgError("singular GF(2^8) matrix")
+        if piv != col:
+            aug[[col, piv]] = aug[[piv, col]]
+        aug[col] = gf_mul(aug[col], gf_inv(aug[col, col]))
+        mask = aug[:, col].copy()
+        mask[col] = 0
+        aug ^= _MUL_TABLE[mask[:, None], aug[col][None, :]]
+    return aug[:, n:].copy()
+
+
+def vandermonde(rows: int, cols: int) -> np.ndarray:
+    """V[r, c] = r^c in GF(2^8) — the ``reed-solomon-erasure`` construction."""
+    V = np.zeros((rows, cols), dtype=np.uint8)
+    for r in range(rows):
+        for c in range(cols):
+            V[r, c] = gf_pow(r, c)
+    return V
+
+
+def gf_matrix_to_bits(M: np.ndarray) -> np.ndarray:
+    """Expand a GF(2^8) matrix (r, k) to its GF(2) bit matrix (k*8, r*8).
+
+    ``A[k*8 + i, j*8 + b]`` = bit ``b`` of ``gf_mul(M[j, k], 1 << i)``, so
+    for data bits ``D`` (..., k*8), ``(D @ A) & 1`` gives output bit b of
+    symbol j at ``[..., j*8 + b]``.
+    """
+    M = np.asarray(M, dtype=np.uint8)
+    r, k = M.shape
+    powers = np.left_shift(1, np.arange(8)).astype(np.uint8)
+    prod = _MUL_TABLE[M[:, :, None], powers[None, None, :]]
+    bits = (prod[..., None] >> np.arange(8)) & 1
+    return bits.transpose(1, 2, 0, 3).reshape(k * 8, r * 8).astype(np.int8)
+
+
+# ---------------------------------------------------------------------------
+# Device path (torch)
+# ---------------------------------------------------------------------------
+
+_DEV_TABLES: dict = {}
+
+
+def _tables(device):
+    """(exp int64 (512,), log int64 (256,), shifts int32 (8,)) on ``device``."""
+    hit = _DEV_TABLES.get(device)
+    if hit is None:
+        hit = _DEV_TABLES[device] = (
+            torch.from_numpy(GF_EXP.astype(np.int64)).to(device),
+            torch.from_numpy(GF_LOG.astype(np.int64)).to(device),
+            torch.arange(8, dtype=torch.int32, device=device),
+        )
+    return hit
+
+
+def bytes_to_bits(x: torch.Tensor) -> torch.Tensor:
+    """uint8 (..., K) → int8 bits (..., K*8), LSB-first."""
+    shifts = _tables(x.device)[2]
+    bits = (x.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(*x.shape[:-1], x.shape[-1] * 8).to(torch.int8)
+
+
+def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
+    """int (..., K*8) bits → uint8 (..., K), LSB-first."""
+    shifts = _tables(bits.device)[2]
+    b = bits.reshape(*bits.shape[:-1], bits.shape[-1] // 8, 8).to(torch.int32)
+    return (b << shifts).sum(dim=-1).to(torch.uint8)
+
+
+def gf_apply_bitmatrix(data: torch.Tensor, bitmat: torch.Tensor) -> torch.Tensor:
+    """Apply a GF(2^8) matrix to byte data.
+
+    data: uint8 (..., B, k); bitmat: (k*8, r*8) from
+    :func:`gf_matrix_to_bits`, or batched (..., k*8, r*8) from
+    :func:`gf_matrix_to_bits_torch` broadcast-compatible with ``data``.
+    Returns uint8 (..., B, r).
+
+    The bit planes contract as float32 (exact: sums ≤ k·8 ≤ 2048).  TF32
+    would round them, so it is switched off here, on purpose, for the
+    whole process.
+    """
+    if data.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dbits = bytes_to_bits(data).to(torch.float32)
+    prod = torch.matmul(dbits, bitmat.to(device=data.device, dtype=torch.float32))
+    return bits_to_bytes(prod.to(torch.int32) & 1)
+
+
+def gf_mul_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise GF(2^8) multiply of two runtime uint8 tensors via
+    log/exp gathers (counterpart of ``gf_mul_jnp``)."""
+    exp, log, _ = _tables(a.device)
+    r = exp[(log[a.long()] + log[b.long()]) % 255]
+    return torch.where((a != 0) & (b != 0), r, 0).to(torch.uint8)
+
+
+def gf_inv_torch(a: torch.Tensor) -> torch.Tensor:
+    """Elementwise GF(2^8) inverse; maps 0 → 0 (caller masks)."""
+    exp, log, _ = _tables(a.device)
+    r = exp[255 - log[a.long()]]
+    return torch.where(a != 0, r, 0).to(torch.uint8)
+
+
+def gf_inv_matrix_impl(M: torch.Tensor, mul, inv, dtype) -> tuple:
+    """Field-generic batched Gauss–Jordan (char-2: elimination is XOR).
+
+    Pivots on the FIRST nonzero entry at or below the diagonal, like the
+    host :func:`gf_inv_matrix_np` and the JAX reference, so decode matrices
+    are bit-identical.  Returns ``(inv, ok)``; ``ok`` is False for singular
+    inputs, whose ``inv`` is garbage."""
+    M = M.to(dtype)
+    n = M.shape[-1]
+    batch = M.shape[:-2]
+    dev = M.device
+    eye = torch.eye(n, dtype=dtype, device=dev).expand(*batch, n, n)
+    aug = torch.cat([M, eye], dim=-1)  # (..., n, 2n)
+    rows = torch.arange(n, device=dev)
+    idx = rows.expand(*batch, n)
+    ok = torch.ones(batch, dtype=torch.bool, device=dev)
+    for col in range(n):
+        cand = (aug[..., :, col] != 0) & (rows >= col)
+        ok = ok & cand.any(dim=-1)
+        # argmax returns the first maximal index: the first True
+        piv = torch.argmax(cand.to(torch.int32), dim=-1)[..., None]
+        perm = torch.where(idx == col, piv, torch.where(idx == piv, col, idx))
+        aug = torch.gather(aug, -2, perm[..., None].expand(*batch, n, 2 * n))
+        pivot_row = mul(aug[..., col, :], inv(aug[..., col, col])[..., None])
+        aug[..., col, :] = pivot_row
+        factors = aug[..., :, col] * (rows != col).to(dtype)
+        aug = aug ^ mul(factors[..., None], pivot_row[..., None, :])
+    return aug[..., n:], ok
+
+
+def gf_inv_matrix_torch(M: torch.Tensor) -> tuple:
+    """Batched GF(2^8) matrix inversion: uint8 (..., n, n) → (inv, ok)."""
+    return gf_inv_matrix_impl(M, gf_mul_torch, gf_inv_torch, torch.uint8)
+
+
+def gf_matrix_to_bits_torch(M: torch.Tensor) -> torch.Tensor:
+    """Batched :func:`gf_matrix_to_bits`: uint8 (..., r, k) → int8
+    (..., k*8, r*8), same layout as the host function."""
+    r, k = M.shape[-2:]
+    shifts = _tables(M.device)[2]
+    powers = (1 << shifts).to(torch.uint8)
+    prod = gf_mul_torch(M[..., None], powers)  # (..., r, k, 8)
+    bits = (prod.to(torch.int32)[..., None] >> shifts) & 1  # (..., r, k, i, b)
+    A = bits.movedim(-4, -2)  # (..., k, i, r, b)
+    return A.reshape(*M.shape[:-2], k * 8, r * 8).to(torch.int8)

@@ -1,0 +1,262 @@
+"""Batched Asynchronous Common Subset and a full HoneyBadger epoch.
+
+Counterpart of ``hbbft_tpu/parallel/acs.py`` on one device (no mesh):
+
+    RBC round (parallel.rbc)  →  N×N delivered mask + values
+    ABA epochs (parallel.aba) →  accepted instance set
+    threshold decrypt         →  contributions → the epoch Batch
+
+The same bulk-synchronous semantics as the reference: ABA inputs are the
+RBC outcome, and decryption is combined once per accepted proposer on the
+host oracle.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from hbbft_tpu_torch import resolve_device
+from hbbft_tpu_torch.parallel.aba import BatchedAba, coin_for, coins_for_epoch
+from hbbft_tpu_torch.parallel.rbc import BatchedRbc, frame_values, unframe_value
+
+
+def _hash_coin(p: int, e: int) -> bool:
+    return bool(hashlib.sha3_256(b"acs-coin%d-%d" % (p, e)).digest()[0] & 1)
+
+
+class BatchedAcs:
+    """One ACS instance over an (n, f) network on ``device``."""
+
+    def __init__(self, n: int, f: int, device="cuda"):
+        self.n = n
+        self.f = f
+        self.device = resolve_device(device)
+        self.rbc = BatchedRbc(n, f)
+        self.aba = BatchedAba(n, f)
+
+    def run(
+        self,
+        values: Sequence[bytes],
+        coin_fn=None,
+        max_epochs: int = 24,
+        compact: bool = False,
+        coin_batch_fn=None,
+        **rbc_kwargs,
+    ):
+        """values[p] = proposer p's contribution.  Returns ``accepted``
+        (N, P), ``data`` (N_recv, P, k, B), ``delivered`` (N, P),
+        ``data_receivers``, ``rbc_fault`` and ``epochs`` as numpy arrays —
+        or, with ``compact=True``, ``accepted_row``, ``accepted_agree``,
+        ``delivered_ok`` and ``data_sel`` (P, k, B).
+
+        coin_fn(p, epoch) -> bool supplies the random-epoch coins (default:
+        a deterministic hash); coin_batch_fn(epoch) -> N bools, when set,
+        covers the whole instance axis in one call."""
+        n = self.n
+        dev = self.device
+        data = torch.from_numpy(frame_values(list(values), self.rbc.k)).to(dev)
+        out = self.rbc.run(data, **rbc_kwargs)
+        delivered = out["delivered"]
+        if coin_fn is None:
+            coin_fn = _hash_coin
+
+        st = self.aba.init_state(delivered)
+        epochs = 0
+        while not bool(st["decided"].all()):
+            if epochs >= max_epochs:
+                raise RuntimeError("ABA did not terminate")
+            if epochs % 3 == 2:  # only the random epochs consult the coin
+                if coin_batch_fn is not None:
+                    bits = coin_batch_fn(epochs)
+                else:
+                    bits = [coin_fn(p, epochs) for p in range(n)]
+                coins = torch.tensor(np.array(bits, dtype=bool), device=dev)
+            else:
+                coins = torch.zeros((n,), dtype=torch.bool, device=dev)
+            st = self.aba.epoch_step(st, coins)
+            epochs += 1
+
+        if compact:
+            if "receivers" in rbc_kwargs:
+                raise ValueError(
+                    "compact mode needs a data row per receiver; it cannot "
+                    "be combined with a receivers=-bounded RBC call"
+                )
+            decision = st["decision"]
+            row = decision[0].cpu().numpy()
+            agree = bool((decision == decision[0][None, :]).all())
+            delivered_np = delivered.cpu().numpy()
+            any_deliv = delivered_np.any(axis=0)
+            delivered_ok = bool((~row | any_deliv).all())
+            src = delivered_np.argmax(axis=0)  # first delivering node
+            recv = out["data_receivers"].cpu().numpy()
+            inv = np.zeros(n, dtype=np.int64)
+            inv[recv] = np.arange(len(recv))
+            sel = out["data"][
+                torch.from_numpy(inv[src]).to(dev), torch.arange(len(src), device=dev)
+            ]
+            return {
+                "accepted_row": row,
+                "accepted_agree": agree,
+                "delivered_ok": delivered_ok,
+                "data_sel": sel.cpu().numpy(),
+                "epochs": epochs,
+            }
+
+        return {
+            "accepted": st["decision"].cpu().numpy(),
+            "delivered": delivered.cpu().numpy(),
+            "data": out["data"].cpu().numpy(),
+            "data_receivers": out["data_receivers"].cpu().numpy(),
+            "rbc_fault": out["fault"].cpu().numpy(),
+            "epochs": epochs,
+        }
+
+
+class BatchedHoneyBadgerEpoch:
+    """One full HoneyBadger epoch in array mode on ``device``.
+
+    Encrypt (TPKE, all proposers in one batch; ``encrypt_backend`` picks
+    native, device or auto exactly as ``tc.tpke_encrypt_batch``'s
+    ``backend``) → batched ACS over the ciphertext bytes → decrypt the
+    accepted contributions (master-scalar fold, one native call)."""
+
+    def __init__(self, netinfo_map: Dict, session_id: bytes = b"batched-hb",
+                 compact: bool = False, device="cuda",
+                 encrypt_backend: Optional[str] = None):
+        ids = sorted(netinfo_map.keys(), key=repr)
+        self.ids = ids
+        self.netinfo_map = netinfo_map
+        info0 = netinfo_map[ids[0]]
+        self.n = info0.num_nodes()
+        self.f = info0.num_faulty()
+        self.session_id = session_id
+        self.compact = compact
+        self.device = resolve_device(device)
+        self.encrypt_backend = encrypt_backend
+        self.acs = BatchedAcs(self.n, self.f, device=self.device)
+
+    def encrypt_phase(self, contributions: Dict, rng,
+                      encrypt: bool = True) -> List[bytes]:
+        """TPKE-encrypt every proposer's contribution in ONE
+        ``tc.tpke_encrypt_batch`` call; returns the per-proposer payloads
+        (ciphertext bytes when encrypting)."""
+        from hbbft_tpu_torch.crypto import tc
+
+        contribs = [contributions.get(nid, b"") for nid in self.ids]
+        if not encrypt:
+            return contribs
+        pk = self.netinfo_map[self.ids[0]].public_key_set().public_key()
+        return [
+            ct.to_bytes()
+            for ct in tc.tpke_encrypt_batch(
+                pk, contribs, rng, backend=self.encrypt_backend,
+                device=self.device,
+            )
+        ]
+
+    def run(self, contributions: Dict, rng, encrypt: bool = True,
+            session_suffix: bytes = b"", timer=None, **rbc_kwargs):
+        """contributions: {node_id: bytes}.  Returns (batch, detail): the
+        agreed {node_id: contribution} map plus the ACS detail arrays.
+
+        ``timer``: optional zero-arg clock; when set, ``detail["phase_s"]``
+        holds the encrypt, acs and decrypt seconds."""
+        t0 = timer() if timer is not None else None
+        payloads = self.encrypt_phase(contributions, rng, encrypt)
+        t_enc = timer() - t0 if timer is not None else None
+        batch, out = self.run_from_payloads(
+            payloads, encrypt=encrypt, session_suffix=session_suffix,
+            timer=timer, **rbc_kwargs,
+        )
+        if timer is not None:
+            out["phase_s"]["encrypt"] = t_enc
+        return batch, out
+
+    def run_from_payloads(self, payloads, encrypt: bool = True,
+                          session_suffix: bytes = b"", timer=None,
+                          **rbc_kwargs):
+        """ACS + threshold decrypt over pre-encrypted payloads.  ``timer``
+        as in :meth:`run` (``phase_s`` gains ``acs`` and ``decrypt``)."""
+        from hbbft_tpu_torch.crypto.batch import batch_tpke_check_decrypt
+
+        info0 = self.netinfo_map[self.ids[0]]
+        pks = info0.public_key_set()
+        session = self.session_id + session_suffix
+
+        def coin_fn(p, e):
+            return coin_for(self.netinfo_map, session, self.ids[p], e)
+
+        def coin_batch_fn(e):
+            return coins_for_epoch(self.netinfo_map, session, self.ids, e)
+
+        t0 = timer() if timer is not None else None
+        out = self.acs.run(
+            payloads, coin_fn=coin_fn, coin_batch_fn=coin_batch_fn,
+            compact=self.compact, **rbc_kwargs
+        )
+        if timer is not None:
+            out["phase_s"] = {"acs": timer() - t0}
+            t0 = timer()
+        out["payload_bytes"] = max((len(p) for p in payloads), default=0)
+        batch: Dict = {}
+        t = pks.threshold()
+        pending: List[Tuple] = []  # (nid, payload)
+        if self.compact:
+            row = out["accepted_row"]
+            if not out["accepted_agree"]:
+                raise RuntimeError("nodes disagree on the accepted set")
+            if not out["delivered_ok"]:
+                raise RuntimeError("an accepted instance has no delivering node")
+
+            def framed(p):
+                return out["data_sel"][p]
+
+        else:
+            row = out["accepted"][0]
+            delivered = out["delivered"]
+            row_of = {int(r): i for i, r in enumerate(out["data_receivers"])}
+
+            def framed(p):
+                deliverers = np.flatnonzero(delivered[:, p])
+                if deliverers.size == 0:
+                    raise RuntimeError(
+                        f"instance {p} accepted but no node delivered its value"
+                    )
+                rows = [row_of[int(d)] for d in deliverers if int(d) in row_of]
+                if not rows:
+                    raise RuntimeError(
+                        f"instance {p}: no delivering receiver has a data row"
+                    )
+                return out["data"][rows[0], p]
+
+        for p, nid in enumerate(self.ids):
+            if not row[p]:
+                continue
+            payload = unframe_value(framed(p))
+            if payload is None:
+                continue
+            if encrypt:
+                pending.append((nid, payload))
+            else:
+                batch[nid] = payload
+        if encrypt and pending:
+            shares = [
+                (
+                    self.netinfo_map[onid].node_index(onid),
+                    self.netinfo_map[onid].secret_key_share(),
+                )
+                for onid in self.ids[: t + 1]
+            ]
+            plaintexts = batch_tpke_check_decrypt(
+                pks, [pl for _, pl in pending], shares, device=self.device
+            )
+            for (nid, _), pt in zip(pending, plaintexts):
+                batch[nid] = pt
+        if timer is not None:
+            out["phase_s"]["decrypt"] = timer() - t0
+        return batch, out
