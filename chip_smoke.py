@@ -1,28 +1,34 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the HoneyBadger epoch on one NVIDIA card.
 
-    python3 chip_smoke.py            # build, kernel checks, N = 64 epoch
+    python3 chip_smoke.py            # build, kernel checks, N = 64 epochs
 
 Phases, one JSON line each; any failure exits non-zero:
 
-1. ``build``: nvcc builds both kernels from ``hbbft_tpu_torch/csrc`` for
-   sm_90a (one nvcc per source, started together) while the native BLS
+1. ``build``: nvcc builds the three kernels from ``hbbft_tpu_torch/csrc``
+   for sm_90a (one nvcc per source, started together) while the native BLS
    oracle builds beside them.
-2. ``kernel_fp_mul_lazy``: Kernel 1 against its plain PyTorch version on
-   the card, digit-exact, at the ladder's row counts (G2: 128, G1: 256,
-   stacked Fp2 products: 384), at 1, 63 and 8192 rows.
+2. ``kernel_fp_mul_lazy``: Kernel 1 (the warp-per-row lazy multiply)
+   against its plain PyTorch version on the card, digit-exact, at 1, 63,
+   128, 256, 384 and 8192 rows.
 3. ``kernel_sha3``: Kernel 2 against its plain version and hashlib,
    byte-exact, over message lengths 0 … 64 KiB and batches up to 4096,
    including the epoch's own shapes (4096 Merkle leaves of one shard each,
    2048 interior pairs of 64 bytes).
-4. ``epoch``: one HoneyBadger epoch at N = 64 (f = 21, 64 000-byte
-   contributions) with the TPKE encrypt ladders on the card, run twice;
-   the second run is timed with every kernel's launch counter reset just
-   before it and read just after.
-5. ``profile``: the device's busy share (kernel time from torch.profiler
-   over wall time), over 4 of the encrypt ladders' 132 steps and over
-   ACS + decrypt.
-6. ``kernels``: every kernel with its launches, errors and times.
+4. ``kernel_ladder``: the whole-ladder kernel against the plain stepwise
+   ladder on the card (plain multiply, no kernel), digit-exact and
+   inf-exact, at the epoch's shapes (G1: 256 rows, G2: 128 rows, 132 bits)
+   with edge rows (a zero scalar, all-ones bits, base_inf padding), and
+   against the native oracle's affine points on five rows.
+5. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
+   contributions) with the TPKE encrypt ladders on the card: a warm run
+   whose ciphertexts are held against the native oracle's, then 5 timed
+   runs, each with every kernel's launch counter reset just before it and
+   read just after (the ladder kernel 2 launches, SHA3 21, Kernel 1 none).
+6. ``profile``: the device's busy share (kernel time from torch.profiler
+   over wall time) and kernel launches, over the whole encrypt phase and
+   over ACS + decrypt.
+7. ``kernels``: every kernel with its launches, errors and times.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -35,6 +41,7 @@ import hashlib
 import json
 import os
 import random
+import statistics
 import subprocess
 import sys
 import threading
@@ -49,12 +56,30 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
-# int32 operations per row of Kernel 1: the 30×30 convolution (900
-# multiply-adds), 3 carry passes over 61 digits (3 ops a digit), the fold
-# of 31 digits against 30-limb rows (930 multiply-adds), the squeeze's
-# carries over 31 digits and its 4 rounds of 30 multiply-adds + carries.
-FP_OPS_PER_ROW = 2 * 900 + 3 * 61 * 3 + 2 * 930 + 3 * 31 * 3 + 4 * (2 * 30 + 3 * 31 * 3)
+# int32 operations of the lazy field, per row.  The squeeze: 3 carry
+# passes over 31 digits (3 ops a digit), then 4 rounds of 30 multiply-adds
+# and 3 carry passes.  Kernel 1: the 30×30 convolution (900 multiply-adds),
+# 3 carry passes over 61 digits, the fold of 31 digits against 30-limb rows
+# (930 multiply-adds), the squeeze.  The add: 1 op a digit and the squeeze;
+# the sub: 3 ops a digit (2·MASK − b, + a, + constant) and the squeeze; a
+# select: 1 op a digit.
+SQUEEZE_OPS = 3 * 31 * 3 + 4 * (2 * 30 + 3 * 31 * 3)
+FP_OPS_PER_ROW = 2 * 900 + 3 * 61 * 3 + 2 * 930 + SQUEEZE_OPS
 FP_BYTES_PER_ROW = 3 * 30 * 4
+FP_ADD_OPS = 30 + SQUEEZE_OPS
+FP_SUB_OPS = 3 * 30 + SQUEEZE_OPS
+FP_SELECT_OPS = 30
+# Fp operations of one ladder step (point_double + point_add_raw + the 3
+# point selects).  G1: 23 products, 15 adds, 10 subs, 9 selects.  G2, in Fp
+# terms: 14 Karatsuba products (3 products, 3 adds, 2 subs each), 9 squares
+# (2 products, 2 adds, 1 sub each), 15 adds and 10 subs (2 each), 9 selects
+# (2 each).
+LADDER_STEP_OPS = {
+    "g1": 23 * FP_OPS_PER_ROW + 15 * FP_ADD_OPS + 10 * FP_SUB_OPS + 9 * FP_SELECT_OPS,
+    "g2": (14 * 3 + 9 * 2) * FP_OPS_PER_ROW + (14 * 3 + 9 * 2 + 15 * 2) * FP_ADD_OPS
+    + (14 * 2 + 9 + 10 * 2) * FP_SUB_OPS + 18 * FP_SELECT_OPS,
+}
+LADDER_BITS = 132  # the GLV/GLS half-scalar ladders of crypto/batch.py
 # 32-bit operations per 136-byte SHA3 block: 24 rounds of ~213 64-bit lane
 # operations (θ 65, ρπ 72, χ 75, ι 1), each two 32-bit operations, plus
 # the 17-lane absorb.
@@ -62,6 +87,12 @@ SHA3_OPS_PER_BLOCK = 24 * 213 * 2 + 17
 
 N_NODES = 64
 CONTRIB_BYTES = 64000
+TIMED_EPOCHS = 5
+# launches of each kernel in one epoch: one G1 and one G2 ladder (64
+# proposers fit one encrypt chunk), 21 SHA3 batches (Merkle leaf level + 6
+# interior levels, for the commit, the proof checks and the root check);
+# Kernel 1 runs inside the ladder kernel, never on its own
+EPOCH_LAUNCHES = {"ladder_lazy": 2, "sha3_256": 21, "fp_mul_lazy": 0}
 
 
 def emit(obj) -> None:
@@ -91,6 +122,24 @@ def time_ms(torch, fn, reps: int, rounds: int = 5) -> float:
         samples.append(start.elapsed_time(stop) / reps)
     samples.sort()
     return samples[len(samples) // 2]
+
+
+def device_ms_per_launch(torch, fn, kernel: str, calls: int = 20):
+    """Device time of one launch of ``kernel`` (a substring of its name),
+    from torch.profiler over ``calls`` calls of ``fn``; None when the
+    profiler records no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key and e.count]
+    if not hits:
+        return None
+    return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
 
 
 def smi_line() -> str:
@@ -163,6 +212,9 @@ def phase_kernel_fp(ctx):
         bms, by = bound_ms(FP_BYTES_PER_ROW * R, FP_OPS_PER_ROW * R)
         rows[R] = {"ms": ms, "us": ms * 1e3, "plain_ms": plain_ms,
                    "bound_ms": bms, "bound_by": by}
+        if R in (256, 8192):  # the timing loop is bound by host dispatch
+            rows[R]["device_ms_per_launch"] = device_ms_per_launch(
+                torch, lambda: fp_lazy.fp_mul_lazy(ta, tb), "fp_mul_lazy_kernel")
     ctx["fp"] = {"max_abs_err": max_err, "rows": rows}
     return {"max_abs_err": max_err, "tolerance": 0, "digit_exact": True, "by_rows": rows}
 
@@ -223,6 +275,92 @@ def phase_kernel_sha3(ctx):
             "by_shape": shapes}
 
 
+def _ladder_rows(group: str, rows: int, rng, dev):
+    """The epoch's ladder shape with edge rows: row 0 a zero scalar, row 1
+    all-ones bits, the last two rows base_inf padding, the rest random
+    half-scalars (< 2^128) on random multiples of the generator."""
+    import torch
+
+    from hbbft_tpu_torch.crypto import bls12_381 as c
+    from hbbft_tpu_torch.ops import fp381 as F
+    from hbbft_tpu_torch.ops import gcurve as G
+
+    n_pad = 2
+    if group == "g1":
+        pts = [c.g1_mul(c.G1_GEN, rng.randrange(1, c.R)) for _ in range(rows - n_pad)]
+        to_dev = G.g1_to_device
+    else:
+        pts = [c.g2_mul(c.G2_GEN, rng.randrange(1, c.R)) for _ in range(rows - n_pad)]
+        to_dev = G.g2_to_device
+    pts += [None] * n_pad
+    scalars = [0, (1 << LADDER_BITS) - 1] + [rng.getrandbits(128) for _ in range(rows - 2)]
+    bits = torch.from_numpy(F.bits_batch(scalars, LADDER_BITS)).to(dev)
+    base_inf = torch.tensor([p is None for p in pts], device=dev)
+    return pts, scalars, to_dev(pts, dev), bits, base_inf
+
+
+def phase_kernel_ladder(ctx):
+    import torch
+
+    from hbbft_tpu_torch.crypto import bls12_381 as c
+    from hbbft_tpu_torch.native import get_oracle
+    from hbbft_tpu_torch.ops import gcurve as G
+
+    dev = torch.device("cuda")
+    nat = get_oracle()
+    rng = random.Random(4)
+    groups = {}
+    max_err = 0
+    for group, rows in (("g1", 4 * N_NODES), ("g2", 2 * N_NODES)):
+        if group == "g1":
+            ops = G.LAZY_FP_OPS
+            from_dev, to_bytes, oracle_mul = G.g1_from_device_batch, c.g1_to_bytes, nat.bls_g1_mul
+        else:
+            ops = G.LAZY_FP2_OPS
+            from_dev, to_bytes, oracle_mul = G.g2_from_device_batch, c.g2_to_bytes, nat.bls_g2_mul
+        pts, scalars, pt, bits, base_inf = _ladder_rows(group, rows, rng, dev)
+        out, inf = G.scalar_mul_lazy(ops, pt, bits, base_inf)
+        torch.cuda.synchronize()
+        # the plain stepwise ladder, timed once: it is the reference
+        t0 = time.perf_counter()
+        ref, ref_inf = G.scalar_mul_lazy_plain(ops, pt, bits, base_inf)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(out, ref))
+        max_err = max(max_err, err)
+        if err or not torch.equal(inf, ref_inf):
+            raise AssertionError(f"{group} ladder kernel differs from the plain ladder")
+        inf_h = inf.cpu().tolist()
+        want_inf = [s == 0 or p is None for p, s in zip(pts, scalars)]
+        if inf_h != want_inf:
+            raise AssertionError(f"{group} ladder kernel: wrong infinity rows")
+        host = from_dev(out)
+        checked = sorted({0, 1, 2, rows // 2, rows - 1})
+        for i in checked:
+            got = to_bytes(None if inf_h[i] else host[i])
+            want = to_bytes(None) if pts[i] is None else oracle_mul(to_bytes(pts[i]), scalars[i])
+            if got != want:
+                raise AssertionError(f"{group} ladder kernel differs from the native oracle, row {i}")
+        ms = time_ms(torch, lambda: G.scalar_mul_lazy(ops, pt, bits, base_inf), 5, rounds=3)
+        width = out[0].shape[1]
+        n_bytes = 2 * 3 * 30 * width * 4 + rows * LADDER_BITS * 4 + 2 * rows
+        n_ops = rows * LADDER_BITS * LADDER_STEP_OPS[group]
+        bms, by = bound_ms(n_bytes, n_ops)
+        groups[group] = {"rows": rows, "bits": LADDER_BITS, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bms, "bound_by": by, "bytes": n_bytes, "ops": n_ops,
+                         "oracle_rows": checked}
+    both = bound_ms(sum(g["bytes"] for g in groups.values()),
+                    sum(g["ops"] for g in groups.values()))
+    ctx["ladder"] = {
+        "max_abs_err": max_err,
+        "ms": sum(g["ms"] for g in groups.values()),
+        "plain_ms": sum(g["plain_ms"] for g in groups.values()),
+        "bound_ms": both[0], "bound_by": both[1],
+    }
+    return {"max_abs_err": max_err, "tolerance": 0, "digit_exact": True, "inf_exact": True,
+            "by_group": groups}
+
+
 def phase_epoch(ctx):
     import numpy as np
     import torch
@@ -261,27 +399,30 @@ def phase_epoch(ctx):
     if batch != contribs:
         raise AssertionError("warm epoch did not return every contribution")
 
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    batch, detail = ep.run(contribs, random.Random(12), timer=time.perf_counter)
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    if batch != contribs:
-        raise AssertionError("timed epoch did not return every contribution")
-    if not np.asarray(detail["accepted"]).all():
-        raise AssertionError("a node did not accept every instance")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the epoch")
+    timed = []
+    for k in range(TIMED_EPOCHS):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        batch, detail = ep.run(contribs, random.Random(12 + k), timer=time.perf_counter)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        if batch != contribs:
+            raise AssertionError("timed epoch did not return every contribution")
+        if not np.asarray(detail["accepted"]).all():
+            raise AssertionError("a node did not accept every instance")
+        if launches != EPOCH_LAUNCHES:
+            raise AssertionError(f"epoch launches {launches}, expected {EPOCH_LAUNCHES}")
+        timed.append({"epoch_s": epoch_s, "phase_s": detail["phase_s"],
+                      "aba_epochs": detail["epochs"]})
     ctx["launches"] = launches
-    ctx["epoch_s"] = epoch_s
-    ctx["epoch"] = (ep, payloads)
+    ctx["epoch"] = (ep, payloads, contribs)
     return {
         "n": N_NODES, "f": nets[0].num_faulty(), "contribution_bytes": CONTRIB_BYTES,
-        "payload_bytes": detail["payload_bytes"], "epoch_s": epoch_s,
-        "phase_s": detail["phase_s"], "aba_epochs": detail["epochs"],
+        "payload_bytes": detail["payload_bytes"],
+        "epoch_s_median": statistics.median(t["epoch_s"] for t in timed),
+        "timed": timed,
         "warm_epoch_s": warm_s, "warm_encrypt_s": warm_encrypt_s,
         "launches_per_epoch": launches, "batch_ok": True,
         "ciphertexts_match_native": True,
@@ -312,8 +453,8 @@ def _busy_share(torch, fn):
     ]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6 if kernels else None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
-    ours = [e for e in kernels if e not in top
-            and ("fp_mul_lazy_kernel" in e.key or "sha3_256_kernel" in e.key)]
+    ours = [e for e in kernels if e not in top and any(
+        k in e.key for k in ("ladder_lazy_kernel", "fp_mul_lazy_kernel", "sha3_256_kernel"))]
     return {
         "wall_s": wall, "device_busy_s": busy,
         "idle_share": None if busy is None else 1 - busy / wall,
@@ -323,42 +464,61 @@ def _busy_share(torch, fn):
     }
 
 
+# the encrypt phase's stages, by function name: the ladder dispatches
+# (host conversions, endomorphisms, the launch) and collections (the wait
+# for the kernel, host adds), the affine serialisation, the KDF + XOR, the
+# native hash-to-G2, the ciphertext's serialisation.  (cProfile on this
+# Python drops some outer frames, so the stages are inner functions.)
+ENCRYPT_STAGES = ("_mul_batch_dispatch", "_mul_batch_collect", "_g1_to_bytes_batch",
+                  "_xor_mask", "bls_hash_g2_batch", "to_bytes")
+
+
+def _host_profile(torch, fn, stages, n: int = 8):
+    """One call of ``fn`` under cProfile (which slows Python calls, not
+    native code): the cumulative seconds of each function named in
+    ``stages``, and the ``n`` functions with the most own time."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats  # (file, line, name) → (cc, calls, own, cumulative, …)
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:n]
+    return {
+        "stages_s": {s: sum(v[3] for (_, _, name), v in stats.items() if name == s)
+                     for s in stages},
+        "top_own": [{"fn": f"{os.path.basename(f)}:{line}:{name}", "calls": v[1],
+                     "own_s": v[2], "cumulative_s": v[3]} for (f, line, name), v in top],
+    }
+
+
 def phase_profile(ctx):
-    """Device busy share of the epoch's two parts: the encrypt ladders (4
-    of their 132 steps, at the epoch's row counts — every step issues the
-    same launches) and ACS + decrypt in full."""
+    """Device busy share and kernel launches of the epoch's two parts, each
+    in full as the epoch runs it: the encrypt phase (both ladders, the
+    host's hash-to-G2, KDF and serialisation) and ACS + decrypt; and the
+    encrypt phase's host time by stage."""
     import torch
 
-    from hbbft_tpu_torch.crypto import bls12_381 as c
-    from hbbft_tpu_torch.ops import gcurve as G
+    ep, payloads, contribs = ctx["epoch"]
 
-    ep, payloads = ctx["epoch"]
-    dev = torch.device("cuda")
-    rng = random.Random(5)
-    steps = 4
-    out = {}
-    for group, rows in (("g1", 2 * 2 * N_NODES), ("g2", 2 * N_NODES)):
-        if group == "g1":
-            pt = G.g1_to_device([c.g1_mul(c.G1_GEN, rng.randrange(1, c.R))
-                                 for _ in range(rows)], dev)
-            ops = G.LAZY_FP_OPS
-        else:
-            pt = G.g2_to_device([c.g2_mul(c.G2_GEN, rng.randrange(1, c.R))
-                                 for _ in range(rows)], dev)
-            ops = G.LAZY_FP2_OPS
-        bits = torch.ones((rows, steps), dtype=torch.int32, device=dev)
-        inf = torch.zeros((rows,), dtype=torch.bool, device=dev)
-        out[f"ladder_{group}"] = {
-            "rows": rows, "steps": steps,
-            **_busy_share(torch, lambda: G.scalar_mul_lazy(ops, pt, bits, inf)),
-        }
-    out["acs_decrypt"] = _busy_share(torch, lambda: ep.run_from_payloads(payloads))
-    return out
+    def encrypt():
+        return ep.encrypt_phase(contribs, random.Random(5))
+
+    enc = _busy_share(torch, encrypt)
+    if enc["kernel_launches"] >= 1000:
+        raise AssertionError(f"encrypt phase issued {enc['kernel_launches']} launches")
+    enc["host"] = _host_profile(torch, encrypt, ENCRYPT_STAGES)
+    return {"encrypt": enc,
+            "acs_decrypt": _busy_share(torch, lambda: ep.run_from_payloads(payloads))}
 
 
 def phase_kernels(ctx):
     fp_main = ctx["fp"]["rows"][256]
     sha = ctx["sha3"]["shapes"][ctx["sha3"]["main"]]
+    lad = ctx["ladder"]
     launches = ctx["launches"]
     kernels = [
         {
@@ -380,6 +540,17 @@ def phase_kernels(ctx):
             "ms": sha["ms"], "plain_ms": sha["plain_ms"],
             "bound_ms": sha["bound_ms"], "bound_by": sha["bound_by"],
             "library_ms": None,
+        },
+        {
+            "name": "ladder_lazy", "route": "cuda",
+            "source": "hbbft_tpu_torch/csrc/ladder_lazy.cu",
+            "replaces": "hbbft_tpu/ops/gcurve.py:245",
+            "launches": launches["ladder_lazy"],
+            "max_abs_err": lad["max_abs_err"],
+            "ms": lad["ms"], "plain_ms": lad["plain_ms"],
+            "bound_ms": lad["bound_ms"], "bound_by": lad["bound_by"],
+            "library_ms": None,
+            "shape": "the epoch's two launches summed: G1 256 rows + G2 128 rows, 132 bits",
         },
     ]
     return {"kernels": kernels}
@@ -409,8 +580,8 @@ def main() -> int:
     # shard bytes of the epoch's ciphertexts (294-byte TPKE header + body)
     ctx["leaf_bytes"] = _frame_shard_len([bytes(294 + CONTRIB_BYTES)], N_NODES - 2 * 21)
     phases = [("build", phase_build), ("kernel_fp_mul_lazy", phase_kernel_fp),
-              ("kernel_sha3", phase_kernel_sha3), ("epoch", phase_epoch),
-              ("profile", phase_profile)]
+              ("kernel_sha3", phase_kernel_sha3), ("kernel_ladder", phase_kernel_ladder),
+              ("epoch", phase_epoch), ("profile", phase_profile)]
     ok = True
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -1,7 +1,8 @@
 """Build, bind and count the port's CUDA kernels.
 
-Each kernel lives in ``csrc/<name>.cu`` with a plain C interface.  At first
-use it is compiled with ``nvcc`` for ``sm_90a`` into
+Each kernel lives in ``csrc/<name>.cu`` with a plain C interface; it may
+include ``csrc/*.cuh`` headers, and editing one rebuilds every kernel that
+includes it.  At first use it is compiled with ``nvcc`` for ``sm_90a`` into
 ``hbbft_tpu_torch/build/lib<name>.so`` and loaded with ``ctypes``; tensors
 cross as ``data_ptr()`` ints and the launch goes to PyTorch's current
 stream.  Every C entry point returns the ``cudaGetLastError()`` of its
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,6 +37,10 @@ KERNELS = {
     "sha3_256": (
         "keccak.cu", "hb_sha3_256",
         [_VP, ctypes.c_int64, ctypes.c_int64, _VP, _VP],
+    ),
+    "ladder_lazy": (
+        "ladder_lazy.cu", "hb_ladder_lazy",
+        [_VP] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
     ),
 }
 
@@ -65,10 +71,23 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD, f"lib{name}.so")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """The kernel's ``.cu`` file and every ``csrc`` header it includes."""
+    src = os.path.join(CSRC, KERNELS[name][0])
+    with open(src) as fh:
+        headers = _INCLUDE.findall(fh.read())
+    return [src] + [os.path.join(CSRC, h) for h in headers]
+
+
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    src = os.path.join(CSRC, KERNELS[name][0])
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    built = os.path.getmtime(lib)
+    return any(built < os.path.getmtime(src) for src in _sources(name))
 
 
 def _start(name: str):

@@ -6,7 +6,8 @@ ladders (``_MsmCache._mul_batch_dispatch``/``_mul_batch_collect``,
 ``g1_mul_batch``/``g2_mul_batch``), the split device TPKE encrypt, and the
 master-scalar threshold decrypt.  The ladders run
 :func:`hbbft_tpu_torch.ops.gcurve.scalar_mul_lazy` over the one lazy field
-at every batch size (the reference's TPU-measured choice between two field
+(on the card: one whole-ladder kernel launch per dispatch) at every batch
+size (the reference's TPU-measured choice between two field
 representations does not change residues, so it is not carried over).
 """
 
@@ -174,11 +175,7 @@ def batch_tpke_decrypt(pks, cts, secret_shares, device="cuda"):
                 [ct.v for ct in cts],
             )
         mask_bytes = [c.g1_to_bytes(c.g1_mul(ct.u, master)) for ct in cts]
-    out = []
-    for ct, mb in zip(cts, mask_bytes):
-        stream = tc._kdf_stream(mb, len(ct.v))
-        out.append(bytes(a ^ b for a, b in zip(ct.v, stream)))
-    return out
+    return [tc._xor_mask(ct.v, mb) for ct, mb in zip(cts, mask_bytes)]
 
 
 def batch_tpke_check_decrypt(pks, payloads, secret_shares, device="cuda"):
@@ -301,10 +298,7 @@ def batch_tpke_encrypt_device(pk_point, msgs: Sequence[bytes], rs,
         m = hi - lo
         ser = _g1_to_bytes_batch(pts)
         u_bytes, mask_bytes = ser[:m], ser[m:]
-        vs = [
-            bytes(a ^ b for a, b in zip(msg, tc._kdf_stream(mb, len(msg))))
-            for msg, mb in zip(msgs[lo:hi], mask_bytes)
-        ]
+        vs = [tc._xor_mask(msg, mb) for msg, mb in zip(msgs[lo:hi], mask_bytes)]
         hins = [b"HBBFT-TPKE" + ub + v for ub, v in zip(u_bytes, vs)]
         if nat is not None:
             hs = [

@@ -65,12 +65,20 @@ def master_secret_from_shares(shares) -> int:
 
 
 def _kdf_stream(seed: bytes, length: int) -> bytes:
-    out = b""
-    ctr = 0
-    while len(out) < length:
-        out += hashlib.sha3_256(seed + ctr.to_bytes(4, "big")).digest()
-        ctr += 1
-    return out[:length]
+    """SHA3-256(seed ‖ ctr) for ctr = 0, 1, … (4-byte big-endian),
+    concatenated and cut to ``length`` bytes — one join, linear time."""
+    blocks = (length + 31) // 32
+    return b"".join(
+        hashlib.sha3_256(seed + ctr.to_bytes(4, "big")).digest()
+        for ctr in range(blocks)
+    )[:length]
+
+
+def _xor_mask(data: bytes, seed: bytes) -> bytes:
+    """``data`` XOR the KDF stream of ``seed``, as one big-int XOR."""
+    n = len(data)
+    stream = _kdf_stream(seed, n)
+    return (int.from_bytes(data, "big") ^ int.from_bytes(stream, "big")).to_bytes(n, "big")
 
 
 def _hash_ciphertext_point(u, v: bytes):
@@ -202,12 +210,7 @@ class PublicKey:
     def _encrypt_with_r(self, msg: bytes, r: int) -> "Ciphertext":
         u = c.g1_mul(c.G1_GEN, r)
         mask = c.g1_mul(self.point, r)
-        v = bytes(
-            a ^ b
-            for a, b in zip(
-                msg, _kdf_stream(c.g1_to_bytes(mask), len(msg))
-            )
-        )
+        v = _xor_mask(msg, c.g1_to_bytes(mask))
         w = c.g2_mul(_hash_ciphertext_point(u, v), r)
         return Ciphertext(u, v, w)
 
@@ -260,12 +263,7 @@ class SecretKey:
         if not ct.verify():
             return None
         mask = c.g1_mul(ct.u, self.scalar)
-        return bytes(
-            a ^ b
-            for a, b in zip(
-                ct.v, _kdf_stream(c.g1_to_bytes(mask), len(ct.v))
-            )
-        )
+        return _xor_mask(ct.v, c.g1_to_bytes(mask))
 
     def __repr__(self):
         return "SecretKey(<redacted>)"
@@ -533,12 +531,7 @@ class PublicKeySet:
         for (i, share), lam in zip(items, lams):
             acc = c.g1_add(acc, c.g1_mul(share.point, lam))
         mask = acc  # = pk^r
-        return bytes(
-            a ^ b
-            for a, b in zip(
-                ct.v, _kdf_stream(c.g1_to_bytes(mask), len(ct.v))
-            )
-        )
+        return _xor_mask(ct.v, c.g1_to_bytes(mask))
 
     def verify_signature(self, sig: Signature, msg: bytes) -> bool:
         return self.public_key().verify(sig, msg)

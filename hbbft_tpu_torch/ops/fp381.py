@@ -12,8 +12,12 @@ and residue-row folds — no canonical form, so zero tests are digit-based
 and sound only in the ladder regime of scalars < 2^128 (see
 ``ops/gcurve.py``).  Canonicalize on the host (``limbs_to_int % P``).
 
-The multiply goes through :func:`hbbft_tpu_torch.ops.fp_lazy.fp_mul_lazy`
-(the CUDA kernel on the card); add/sub/neg are plain PyTorch.
+Everything here is plain PyTorch, on any device: the multiply is
+:func:`hbbft_tpu_torch.ops.fp_lazy.mul_lazy_cols`, so a ladder over this
+field is the plain reference of the kernels.  Kernel 1
+(``fp_lazy.fp_mul_lazy``) and the whole-ladder kernel
+(``csrc/ladder_lazy.cu``) run the same field, digit for digit, in CUDA
+(``csrc/fp_lazy.cuh``).
 """
 
 from __future__ import annotations
@@ -143,10 +147,10 @@ def _squeeze_lazy(acc: torch.Tensor) -> torch.Tensor:
 
 
 def fp_mul_lazy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Lazy modular product of (NL, R) columns — Kernel 1 on the card."""
+    """Lazy modular product of (NL, R) columns: Kernel 1's plain version."""
     from hbbft_tpu_torch.ops import fp_lazy
 
-    return fp_lazy.fp_mul_lazy(a, b)
+    return fp_lazy.mul_lazy_cols(a, b, consts(a.device).fold)
 
 
 def fp_add_lazy(a, b):
@@ -197,8 +201,8 @@ fp2_neg_lazy = fp_neg_lazy
 
 
 def _mul_stacked(xs, ys):
-    """Several products as ONE kernel launch: the operands are stacked
-    along the row axis and the product split back (widths of ``xs``)."""
+    """Several products as ONE multiply: the operands are stacked along
+    the row axis and the product split back (widths of ``xs``)."""
     t = fp_mul_lazy(torch.cat(xs, dim=1), torch.cat(ys, dim=1))
     return torch.split(t, [x.shape[1] for x in xs], dim=1)
 

@@ -54,7 +54,7 @@ def mul_lazy_cols(a: torch.Tensor, b: torch.Tensor, fold: torch.Tensor):
 def fp_mul_lazy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Lazy field multiply of int32 ``(NL, R)`` columns.
 
-    On a CUDA tensor: one launch of Kernel 1 (one thread per row).  On a
+    On a CUDA tensor: one launch of Kernel 1 (one warp per row).  On a
     CPU tensor: :func:`mul_lazy_cols`."""
     fold = F.consts(a.device).fold
     if not a.is_cuda:

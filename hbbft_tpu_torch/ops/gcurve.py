@@ -3,9 +3,12 @@
 Counterpart of ``hbbft_tpu/ops/gcurve.py`` for the lazy ladder: the same
 formulas (dbl-2009-l doubling, add-2007-bl addition) written once over a
 field-ops bundle, and the MSB-first double-and-add ladder
-:func:`scalar_mul_lazy` with infinity as an explicit flag — here a Python
-loop over the bits.  A coordinate of R points is one (NL, R) column tensor
-(G1) or one (NL, 2R) tensor [re | im] (G2, see ``ops/fp381.py``).
+:func:`scalar_mul_lazy` with infinity as an explicit flag.  On the card the
+whole ladder is one launch of ``csrc/ladder_lazy.cu``
+(:mod:`hbbft_tpu_torch.ops.ladder_lazy`); its plain version, on the CPU and
+as the card's reference, is the stepwise :func:`scalar_mul_lazy_plain`.  A
+coordinate of R points is one (NL, R) column tensor (G1) or one (NL, 2R)
+tensor [re | im] (G2, see ``ops/fp381.py``).
 
 The windowed ladder, ``msm`` and the canonical field are not ported yet.
 """
@@ -19,12 +22,14 @@ import torch
 
 from hbbft_tpu_torch.crypto.bls12_381 import R
 from hbbft_tpu_torch.ops import fp381 as F
+from hbbft_tpu_torch.ops import ladder_lazy
 
 
 class _LazyFpOps:
-    """The lazy field over Fp (see ops/fp381.py for its soundness
-    conditions — ladders must use scalars < 2^128)."""
+    """The lazy field over Fp, in plain PyTorch (see ops/fp381.py for its
+    soundness conditions — ladders must use scalars < 2^128)."""
 
+    fp2 = False
     add = staticmethod(F.fp_add_lazy)
     sub = staticmethod(F.fp_sub_lazy)
     mul = staticmethod(F.fp_mul_lazy)
@@ -35,6 +40,7 @@ class _LazyFpOps:
 
 
 class _LazyFp2Ops:
+    fp2 = True
     add = staticmethod(F.fp2_add_lazy)
     sub = staticmethod(F.fp2_sub_lazy)
     mul = staticmethod(F.fp2_mul_lazy)
@@ -101,7 +107,6 @@ def point_select(o, mask, p, q):
     )
 
 
-@torch.inference_mode()  # no autograd bookkeeping on ~10^5 small ops
 def scalar_mul_lazy(o, pt, bits: torch.Tensor, base_inf: torch.Tensor):
     """MSB-first double-and-add over the LAZY field, infinity as a flag.
 
@@ -109,20 +114,39 @@ def scalar_mul_lazy(o, pt, bits: torch.Tensor, base_inf: torch.Tensor):
     little-endian; base_inf: bool (R,).  Sound for scalars < 2^128 (a
     P == ±Q collision needs a bit-prefix m ≥ (r−1)/2 ≥ 2^253).
     Returns ((X, Y, Z), inf).
+
+    On CUDA tensors: ONE launch of the whole-ladder kernel, G1 or G2 as
+    ``o.fp2`` says (it raises rather than fall back).  On CPU tensors:
+    :func:`scalar_mul_lazy_plain` over ``o``.
     """
+    if not pt[0].is_cuda:
+        return scalar_mul_lazy_plain(o, pt, bits, base_inf)
+    return ladder_lazy.ladder_lazy(pt, bits, base_inf, fp2=o.fp2)
+
+
+@torch.inference_mode()  # no autograd bookkeeping on ~10^5 small ops
+def scalar_mul_lazy_plain(o, pt, bits: torch.Tensor, base_inf: torch.Tensor):
+    """:func:`scalar_mul_lazy` as a Python loop over the bits, one plain
+    field op at a time over ``o``: on the card it is the whole-ladder
+    kernel's reference and launches no kernel of the port."""
     nbits = bits.shape[-1]
     bits_t = bits.t().contiguous().bool()  # (nbits, R): one row per step
     acc = tuple(torch.zeros_like(c) for c in pt)
     inf = torch.ones(base_inf.shape, dtype=torch.bool, device=base_inf.device)
     for i in range(nbits):
-        acc = point_double(o, acc)  # double keeps finiteness (odd order)
-        added = point_add_raw(o, acc, pt)
-        # acc = ∞: acc + base = base; base = ∞: stays acc
-        res = point_select(o, inf, pt, point_select(o, base_inf, acc, added))
-        res_inf = inf & base_inf
-        bit = bits_t[nbits - 1 - i]
-        acc = point_select(o, bit, res, acc)
-        inf = torch.where(bit, res_inf, inf)
+        acc, inf = ladder_step(o, acc, inf, pt, base_inf, bits_t[nbits - 1 - i])
+    return acc, inf
+
+
+def ladder_step(o, acc, inf, pt, base_inf, bit):
+    """One step of the ladder: acc ← 2·acc (+ pt where ``bit``)."""
+    acc = point_double(o, acc)  # double keeps finiteness (odd order)
+    added = point_add_raw(o, acc, pt)
+    # acc = ∞: acc + base = base; base = ∞: stays acc
+    res = point_select(o, inf, pt, point_select(o, base_inf, acc, added))
+    res_inf = inf & base_inf
+    acc = point_select(o, bit, res, acc)
+    inf = torch.where(bit, res_inf, inf)
     return acc, inf
 
 

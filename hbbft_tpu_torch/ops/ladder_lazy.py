@@ -1,0 +1,64 @@
+"""The whole-ladder kernel: one launch runs a lazy scalar-mul ladder.
+
+Counterpart of ``hbbft_tpu/ops/gcurve.py :: scalar_mul_lazy`` — on the TPU
+one XLA program (a ``jax.lax.fori_loop`` over point_double, point_add_raw,
+three point_selects and the infinity flag) around the lazy multiply that
+``hbbft_tpu/ops/pallas_fp.py`` writes as a Pallas kernel.  Here it is one
+launch of ``csrc/ladder_lazy.cu``: one warp per row, every step on chip,
+the lazy field from ``csrc/fp_lazy.cuh``.  Digit-exact and inf-exact with
+:func:`hbbft_tpu_torch.ops.gcurve.scalar_mul_lazy_plain`, its plain version,
+which :func:`hbbft_tpu_torch.ops.gcurve.scalar_mul_lazy` runs on CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hbbft_tpu_torch import _build
+from hbbft_tpu_torch.ops import fp381 as F
+
+NL = F.NL
+
+
+def ladder_lazy(pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool):
+    """One launch of the whole-ladder kernel on CUDA tensors.
+
+    pt: (X, Y, Z), each int32 (NL, R) (G1) or (NL, 2R) [re | im] (G2,
+    ``fp2=True``); bits: (R, nbits) bool/int, little-endian; base_inf: bool
+    (R,).  Returns ((X, Y, Z), inf) in the same layout."""
+    x, y, z = pt
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError("ladder_lazy runs on CUDA tensors (the plain ladder "
+                         "is gcurve.scalar_mul_lazy_plain)")
+    if bits.dim() != 2:
+        raise ValueError(f"ladder_lazy bits shape {tuple(bits.shape)}: expected (R, nbits)")
+    R, nbits = bits.shape
+    width = 2 * R if fp2 else R
+    for c in pt:
+        if c.dtype != torch.int32 or tuple(c.shape) != (NL, width):
+            raise ValueError(
+                f"ladder_lazy coordinate {c.dtype} {tuple(c.shape)}: expected "
+                f"int32 ({NL}, {width})"
+            )
+    if tuple(base_inf.shape) != (R,):
+        raise ValueError(f"ladder_lazy base_inf shape {tuple(base_inf.shape)}: expected ({R},)")
+    if any(t.device != dev for t in (y, z, bits, base_inf)):
+        raise ValueError("ladder_lazy operands on different devices")
+    x, y, z = (c.contiguous() for c in pt)
+    bits = bits.to(torch.int32).contiguous()
+    base_inf = base_inf.to(torch.bool).contiguous()
+    out = tuple(torch.empty_like(c) for c in (x, y, z))
+    inf = torch.empty((R,), dtype=torch.bool, device=dev)
+    if R:
+        k = F.consts(dev)
+        rc = _build.lib("ladder_lazy").hb_ladder_lazy(
+            x.data_ptr(), y.data_ptr(), z.data_ptr(), bits.data_ptr(),
+            base_inf.data_ptr(), k.fold.data_ptr(), k.subc.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            inf.data_ptr(), R, nbits, int(fp2), _build.stream_ptr(x),
+        )
+        _build.check("ladder_lazy", rc)
+        _build.LAUNCHES["ladder_lazy"] += 1
+    return out, inf
