@@ -12,14 +12,16 @@ Phases, one JSON line each; any failure exits non-zero:
    against its plain PyTorch version on the card, digit-exact, at 1, 63,
    128, 256, 384 and 8192 rows.
 3. ``kernel_sha3``: Kernel 2 against its plain version and hashlib,
-   byte-exact, over message lengths 0 … 64 KiB and batches up to 4096,
+   byte-exact, over message lengths 0 … 64 KiB and batches up to 4097,
    including the epoch's own shapes (4096 Merkle leaves of one shard each,
-   2048 interior pairs of 64 bytes).
+   2048 interior pairs of 64 bytes), timed there by CUDA events and by the
+   profiler's device time per launch.
 4. ``kernel_ladder``: the whole-ladder kernel against the plain stepwise
    ladder on the card (plain multiply, no kernel), digit-exact and
    inf-exact, at the epoch's shapes (G1: 256 rows, G2: 128 rows, 132 bits)
-   with edge rows (a zero scalar, all-ones bits, base_inf padding), and
-   against the native oracle's affine points on five rows.
+   with edge rows (a zero scalar, all-ones bits, base_inf padding) and at
+   ragged row counts (G1: 1, 3, 33, 129; G2: 1, 3, 65), and against the
+   native oracle's affine points on five rows; G1 and G2 timed apart.
 5. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
    contributions) with the TPKE encrypt ladders on the card: a warm run
    whose ciphertexts are held against the native oracle's, then 5 timed
@@ -30,7 +32,11 @@ Phases, one JSON line each; any failure exits non-zero:
    over ACS + decrypt.
 7. ``kernels``: every kernel with its launches, errors and times.
 
-Then the card's name and power limit as nvidia-smi prints them, and last
+Bounds are the larger of bytes over HBM's rate and int32 instructions over
+the card's int32 pipes (the ``peak`` line: an ALU and an FMA pipe of 64
+lanes a clock per SM each, 128 dispatched a clock per SM, at the maximum SM
+clock that nvidia-smi reports).  Then the card's name and power
+limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
 package beside this file, it exits non-zero and prints no result.
 """
@@ -50,40 +56,51 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the float32 rate
-# outside the tensor cores, taken as the ceiling for 32-bit integer work
-# (a multiply-add counts as two operations).
+# The card's ceilings.  Bytes: HBM at 3.35 TB/s (H100 SXM data sheet).
+# Operations: the kernels do 32-bit integer work, which Hopper issues on two
+# pipes of 64 lanes a clock per SM (16 in each of the 4 sub-partitions):
+# the ALU pipe (logic, shifts, selects, compares, LEA) and the FMA pipe
+# (IMAD, and the adds, moves and left shifts that the compiler issues there
+# as IMAD.IADD / IMAD.MOV / IMAD.SHL); each sub-partition dispatches one
+# warp instruction a clock, 128 lanes a clock per SM in all (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0; Nsight Compute's pipe descriptions).  The least time of a mix is the
+# largest of its ALU-only work over 64, its multiply-adds over 64 and all
+# of it over 128, in clocks per SM, at the card's maximum SM clock read from
+# nvidia-smi.  Work is counted as the fewest instructions the function
+# needs, as (ALU only, multiply-add, either pipe): a multiply-add, a
+# three-input logic op (LOP3), a three-input add and a funnel shift are one
+# instruction each.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PIPE_PER_CLOCK_PER_SM = 64
+DISPATCH_PER_CLOCK_PER_SM = 128
 
-# int32 operations of the lazy field, per row.  The squeeze: 3 carry
-# passes over 31 digits (3 ops a digit), then 4 rounds of 30 multiply-adds
-# and 3 carry passes.  Kernel 1: the 30×30 convolution (900 multiply-adds),
-# 3 carry passes over 61 digits, the fold of 31 digits against 30-limb rows
-# (930 multiply-adds), the squeeze.  The add: 1 op a digit and the squeeze;
-# the sub: 3 ops a digit (2·MASK − b, + a, + constant) and the squeeze; a
-# select: 1 op a digit.
-SQUEEZE_OPS = 3 * 31 * 3 + 4 * (2 * 30 + 3 * 31 * 3)
-FP_OPS_PER_ROW = 2 * 900 + 3 * 61 * 3 + 2 * 930 + SQUEEZE_OPS
-FP_BYTES_PER_ROW = 3 * 30 * 4
-FP_ADD_OPS = 30 + SQUEEZE_OPS
-FP_SUB_OPS = 3 * 30 + SQUEEZE_OPS
-FP_SELECT_OPS = 30
-# Fp operations of one ladder step (point_double + point_add_raw + the 3
-# point selects).  G1: 23 products, 15 adds, 10 subs, 9 selects.  G2, in Fp
-# terms: 14 Karatsuba products (3 products, 3 adds, 2 subs each), 9 squares
-# (2 products, 2 adds, 1 sub each), 15 adds and 10 subs (2 each), 9 selects
-# (2 each).
-LADDER_STEP_OPS = {
-    "g1": 23 * FP_OPS_PER_ROW + 15 * FP_ADD_OPS + 10 * FP_SUB_OPS + 9 * FP_SELECT_OPS,
-    "g2": (14 * 3 + 9 * 2) * FP_OPS_PER_ROW + (14 * 3 + 9 * 2 + 15 * 2) * FP_ADD_OPS
-    + (14 * 2 + 9 + 10 * 2) * FP_SUB_OPS + 18 * FP_SELECT_OPS,
+# int32 instructions of the lazy field, per row (the plain algorithm's
+# passes, which the kernels compute).  A rough carry pass is 2 ALU
+# instructions a digit: the mask (LOP3) and the shift-and-add (LEA.HI), as
+# the ladder kernel's SASS has them.  The squeeze: 3 passes over 31 digits,
+# then 4 rounds of 30 multiply-adds and 3 passes.  A product: the 30×30
+# convolution (900 multiply-adds), 3 passes over 61 digits, the fold of 31
+# digits against 30-limb rows (930 multiply-adds), the squeeze.  The add: 1
+# a digit and the squeeze; the sub: a − b + constant, one three-input add a
+# digit, and the squeeze; a select: 1 a digit (SEL, or a predicated
+# IMAD.MOV).
+CARRY_OPS = 2
+SQUEEZE_OPS = (3 * 31 * CARRY_OPS + 4 * 3 * 31 * CARRY_OPS, 4 * 30, 0)
+FP_KIND_OPS = {
+    "MUL": (3 * 61 * CARRY_OPS + SQUEEZE_OPS[0], 900 + 930 + SQUEEZE_OPS[1], 0),
+    "ADD": (SQUEEZE_OPS[0], SQUEEZE_OPS[1], 30),
+    "SUB": (SQUEEZE_OPS[0], SQUEEZE_OPS[1], 30),
+    "SEL": (0, 0, 30),
 }
+FP_BYTES_PER_ROW = 3 * 30 * 4
 LADDER_BITS = 132  # the GLV/GLS half-scalar ladders of crypto/batch.py
-# 32-bit operations per 136-byte SHA3 block: 24 rounds of ~213 64-bit lane
-# operations (θ 65, ρπ 72, χ 75, ι 1), each two 32-bit operations, plus
-# the 17-lane absorb.
-SHA3_OPS_PER_BLOCK = 24 * 213 * 2 + 17
+# int32 instructions per 136-byte SHA3 block, all ALU: 24 rounds, each on
+# both 32-bit halves of the 25 lanes: θ's column parities (2 LOP3 a column),
+# the rot-1 of 5 parities (a funnel shift each), θ's XOR of two parities
+# into every lane (a LOP3 each), ρ (24 funnel shifts; π only renames), χ (a
+# LOP3 a lane) and ι (one XOR); then the 17-lane absorb, one XOR a half.
+SHA3_OPS_PER_BLOCK = (24 * 2 * (10 + 5 + 25 + 24 + 25 + 1) + 17 * 2, 0, 0)
 
 N_NODES = 64
 CONTRIB_BYTES = 64000
@@ -99,9 +116,32 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def ops_sum(counts, scale: int = 1):
+    """The sum of (ALU, multiply-add, either) triples, times ``scale``."""
+    return tuple(scale * sum(c[k] for c in counts) for k in range(3))
+
+
+def ladder_ops(group: str, rows: int, nbits: int):
+    """int32 instructions of a whole ladder: the step's operations as the
+    kernel's schedule holds them (ops/ladder_schedule.py: shared and
+    base-only operations counted once), every step, plus the prologue."""
+    from hbbft_tpu_torch.ops import ladder_schedule as LS
+
+    s = LS.build(group)
+    kinds = ("MUL", "ADD", "SUB", "SEL")
+    step = ops_sum([FP_KIND_OPS[kinds[op[0]]] for ls in s.lists for op in ls], nbits)
+    once = ops_sum([FP_KIND_OPS[kinds[op[0]]] for op in s.prologue])
+    return ops_sum([step, once], rows)
+
+
+def bound_ms(ctx, n_bytes: float, ops):
+    """The larger of the bytes over HBM's rate and the instruction mix
+    ``ops`` (ALU only, multiply-add, either pipe) over the int32 pipes."""
+    alu, fma, either = ops
+    clocks = max(alu / PIPE_PER_CLOCK_PER_SM, fma / PIPE_PER_CLOCK_PER_SM,
+                 (alu + fma + either) / DISPATCH_PER_CLOCK_PER_SM)
     t_bytes = n_bytes / PEAK_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS_PER_S
+    t_ops = clocks / ctx["sm_clocks_per_s"]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -142,9 +182,9 @@ def device_ms_per_launch(torch, fn, kernel: str, calls: int = 20):
     return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
 
 
-def smi_line() -> str:
+def smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
@@ -209,7 +249,7 @@ def phase_kernel_fp(ctx):
             raise AssertionError(f"fp_mul_lazy differs from its plain version at R={R}")
         ms = time_ms(torch, lambda: fp_lazy.fp_mul_lazy(ta, tb), 200)
         plain_ms = time_ms(torch, lambda: fp_lazy.mul_lazy_cols(ta, tb, fold), 20)
-        bms, by = bound_ms(FP_BYTES_PER_ROW * R, FP_OPS_PER_ROW * R)
+        bms, by = bound_ms(ctx, FP_BYTES_PER_ROW * R, ops_sum([FP_KIND_OPS["MUL"]], R))
         rows[R] = {"ms": ms, "us": ms * 1e3, "plain_ms": plain_ms,
                    "bound_ms": bms, "bound_by": by}
         if R in (256, 8192):  # the timing loop is bound by host dispatch
@@ -250,7 +290,7 @@ def phase_kernel_sha3(ctx):
 
     leaf = ctx["leaf_bytes"]
     for L, batches in ((0, (1, 4096)), (64, (1, 2048)), (135, (1, 4096)),
-                       (136, (1, 4096)), (137, (1, 4096)), (leaf, (1, 4096)),
+                       (136, (1, 4096)), (137, (1, 4096)), (leaf, (1, 4096, 4097)),
                        (2930, (1, 4096)), (65536, (1, 512))):
         for M in batches:
             msgs = rng.integers(0, 256, (M, L), dtype=np.uint8)
@@ -264,39 +304,36 @@ def phase_kernel_sha3(ctx):
         t = torch.from_numpy(msgs).to(dev)
         check(msgs, t)
         ms = time_ms(torch, lambda: keccak.sha3_256(t), 20)
+        dev_ms = device_ms_per_launch(torch, lambda: keccak.sha3_256(t), "sha3_256_kernel")
         plain_ms = time_ms(torch, lambda: keccak.sha3_256_plain(t), 1, rounds=3)
         nblocks = L // keccak.RATE_BYTES + 1
-        bms, by = bound_ms(M * (L + 32), M * nblocks * SHA3_OPS_PER_BLOCK)
-        shapes[f"{M}x{L}"] = {"ms": ms, "us": ms * 1e3, "plain_ms": plain_ms,
-                              "bound_ms": bms, "bound_by": by}
+        bms, by = bound_ms(ctx, M * (L + 32), ops_sum([SHA3_OPS_PER_BLOCK], M * nblocks))
+        shapes[f"{M}x{L}"] = {"ms": ms, "us": ms * 1e3, "device_ms_per_launch": dev_ms,
+                              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
     ctx["sha3"] = {"max_abs_err": max_err, "shapes": shapes,
                    "main": f"4096x{ctx['leaf_bytes']}"}
     return {"max_abs_err": max_err, "tolerance": 0, "byte_exact": True, "checked": checked,
             "by_shape": shapes}
 
 
-def _ladder_rows(group: str, rows: int, rng, dev):
-    """The epoch's ladder shape with edge rows: row 0 a zero scalar, row 1
-    all-ones bits, the last two rows base_inf padding, the rest random
-    half-scalars (< 2^128) on random multiples of the generator."""
-    import torch
-
+def _ladder_rows(group: str, rows: int, rng):
+    """Host points and scalars for one ladder launch: random half-scalars
+    (< 2^128) on random multiples of the generator, with edge rows — from 4
+    rows on, row 0 a zero scalar, row 1 all-ones bits and the last two rows
+    base_inf padding; at 3 rows, all-ones bits first and base_inf last."""
     from hbbft_tpu_torch.crypto import bls12_381 as c
-    from hbbft_tpu_torch.ops import fp381 as F
-    from hbbft_tpu_torch.ops import gcurve as G
 
-    n_pad = 2
-    if group == "g1":
-        pts = [c.g1_mul(c.G1_GEN, rng.randrange(1, c.R)) for _ in range(rows - n_pad)]
-        to_dev = G.g1_to_device
-    else:
-        pts = [c.g2_mul(c.G2_GEN, rng.randrange(1, c.R)) for _ in range(rows - n_pad)]
-        to_dev = G.g2_to_device
-    pts += [None] * n_pad
-    scalars = [0, (1 << LADDER_BITS) - 1] + [rng.getrandbits(128) for _ in range(rows - 2)]
-    bits = torch.from_numpy(F.bits_batch(scalars, LADDER_BITS)).to(dev)
-    base_inf = torch.tensor([p is None for p in pts], device=dev)
-    return pts, scalars, to_dev(pts, dev), bits, base_inf
+    ones = (1 << LADDER_BITS) - 1
+    specials, n_pad = ([0, ones], 2) if rows >= 4 else (([ones], 1) if rows == 3 else ([], 0))
+    mul, gen = (c.g1_mul, c.G1_GEN) if group == "g1" else (c.g2_mul, c.G2_GEN)
+    pts = [mul(gen, rng.randrange(1, c.R)) for _ in range(rows - n_pad)] + [None] * n_pad
+    scalars = specials + [rng.getrandbits(128) for _ in range(rows - len(specials))]
+    return pts, scalars
+
+
+# the epoch's ladder shapes, then ragged row counts (a block layout that
+# assumed a multiple of its rows would show there)
+LADDER_ROWS = {"g1": (4 * N_NODES, 1, 3, 33, 129), "g2": (2 * N_NODES, 1, 3, 65)}
 
 
 def phase_kernel_ladder(ctx):
@@ -304,6 +341,7 @@ def phase_kernel_ladder(ctx):
 
     from hbbft_tpu_torch.crypto import bls12_381 as c
     from hbbft_tpu_torch.native import get_oracle
+    from hbbft_tpu_torch.ops import fp381 as F
     from hbbft_tpu_torch.ops import gcurve as G
 
     dev = torch.device("cuda")
@@ -311,30 +349,63 @@ def phase_kernel_ladder(ctx):
     rng = random.Random(4)
     groups = {}
     max_err = 0
-    for group, rows in (("g1", 4 * N_NODES), ("g2", 2 * N_NODES)):
+    for group in ("g1", "g2"):
         if group == "g1":
-            ops = G.LAZY_FP_OPS
+            ops, to_dev = G.LAZY_FP_OPS, G.g1_to_device
             from_dev, to_bytes, oracle_mul = G.g1_from_device_batch, c.g1_to_bytes, nat.bls_g1_mul
         else:
-            ops = G.LAZY_FP2_OPS
+            ops, to_dev = G.LAZY_FP2_OPS, G.g2_to_device
             from_dev, to_bytes, oracle_mul = G.g2_from_device_batch, c.g2_to_bytes, nat.bls_g2_mul
-        pts, scalars, pt, bits, base_inf = _ladder_rows(group, rows, rng, dev)
-        out, inf = G.scalar_mul_lazy(ops, pt, bits, base_inf)
+        cases = [_ladder_rows(group, R, rng) for R in LADDER_ROWS[group]]
+        launches = []
+        for pts, scalars in cases:
+            pt = to_dev(pts, dev)
+            bits = torch.from_numpy(F.bits_batch(scalars, LADDER_BITS)).to(dev)
+            base_inf = torch.tensor([p is None for p in pts], device=dev)
+            launches.append((pt, bits, base_inf, G.scalar_mul_lazy(ops, pt, bits, base_inf)))
         torch.cuda.synchronize()
-        # the plain stepwise ladder, timed once: it is the reference
-        t0 = time.perf_counter()
-        ref, ref_inf = G.scalar_mul_lazy_plain(ops, pt, bits, base_inf)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(out, ref))
-        max_err = max(max_err, err)
-        if err or not torch.equal(inf, ref_inf):
-            raise AssertionError(f"{group} ladder kernel differs from the plain ladder")
-        inf_h = inf.cpu().tolist()
-        want_inf = [s == 0 or p is None for p, s in zip(pts, scalars)]
-        if inf_h != want_inf:
-            raise AssertionError(f"{group} ladder kernel: wrong infinity rows")
+
+        def plain(idx):
+            """The plain stepwise ladder, once over the rows of the cases
+            ``idx`` together (it is row by row), and its wall time."""
+            all_pts = [p for i in idx for p in cases[i][0]]
+            pt_all = to_dev(all_pts, dev)
+            bits_all = torch.from_numpy(
+                F.bits_batch([s for i in idx for s in cases[i][1]], LADDER_BITS)).to(dev)
+            inf_all = torch.tensor([p is None for p in all_pts], device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = G.scalar_mul_lazy_plain(ops, pt_all, bits_all, inf_all)
+            torch.cuda.synchronize()
+            return ref, len(all_pts), (time.perf_counter() - t0) * 1e3
+
+        # the reference: the ragged cases in one call, then the epoch's
+        # shape alone, whose time is the plain version's
+        for idx in (range(1, len(cases)), [0]):
+            (ref, ref_inf), n_all, plain_ms = plain(idx)
+            start = 0
+            for i in idx:
+                (pts, scalars), (pt, bits, base_inf, (out, inf)) = cases[i], launches[i]
+                R = len(pts)
+                cols = (torch.arange(start, start + R, device=dev) if group == "g1" else
+                        torch.cat([torch.arange(start, start + R, device=dev),
+                                   torch.arange(n_all + start, n_all + start + R, device=dev)]))
+                err = max(int((g.long() - r[:, cols].long()).abs().max())
+                          for g, r in zip(out, ref))
+                max_err = max(max_err, err)
+                if err or not torch.equal(inf, ref_inf[start:start + R]):
+                    raise AssertionError(
+                        f"{group} ladder kernel differs from the plain ladder at R={R}")
+                inf_h = inf.cpu().tolist()
+                want_inf = [s == 0 or p is None for p, s in zip(pts, scalars)]
+                if inf_h != want_inf:
+                    raise AssertionError(f"{group} ladder kernel: wrong infinity rows at R={R}")
+                start += R
+        pts, scalars = cases[0]
+        pt, bits, base_inf, (out, inf) = launches[0]
+        rows = len(pts)
         host = from_dev(out)
+        inf_h = inf.cpu().tolist()
         checked = sorted({0, 1, 2, rows // 2, rows - 1})
         for i in checked:
             got = to_bytes(None if inf_h[i] else host[i])
@@ -342,20 +413,25 @@ def phase_kernel_ladder(ctx):
             if got != want:
                 raise AssertionError(f"{group} ladder kernel differs from the native oracle, row {i}")
         ms = time_ms(torch, lambda: G.scalar_mul_lazy(ops, pt, bits, base_inf), 5, rounds=3)
+        dev_ms = device_ms_per_launch(
+            torch, lambda: G.scalar_mul_lazy(ops, pt, bits, base_inf), "ladder_lazy_kernel", calls=5)
         width = out[0].shape[1]
         n_bytes = 2 * 3 * 30 * width * 4 + rows * LADDER_BITS * 4 + 2 * rows
-        n_ops = rows * LADDER_BITS * LADDER_STEP_OPS[group]
-        bms, by = bound_ms(n_bytes, n_ops)
-        groups[group] = {"rows": rows, "bits": LADDER_BITS, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bms, "bound_by": by, "bytes": n_bytes, "ops": n_ops,
-                         "oracle_rows": checked}
-    both = bound_ms(sum(g["bytes"] for g in groups.values()),
-                    sum(g["ops"] for g in groups.values()))
+        n_ops = ladder_ops(group, rows, LADDER_BITS)
+        bms, by = bound_ms(ctx, n_bytes, n_ops)
+        groups[group] = {"rows": rows, "bits": LADDER_BITS, "ms": ms, "device_ms_per_launch": dev_ms,
+                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                         "bytes": n_bytes, "ops": n_ops, "oracle_rows": checked,
+                         "ragged_rows_checked": list(LADDER_ROWS[group][1:])}
+    both = bound_ms(ctx, sum(g["bytes"] for g in groups.values()),
+                    ops_sum([g["ops"] for g in groups.values()]))
     ctx["ladder"] = {
         "max_abs_err": max_err,
         "ms": sum(g["ms"] for g in groups.values()),
         "plain_ms": sum(g["plain_ms"] for g in groups.values()),
         "bound_ms": both[0], "bound_by": both[1],
+        "device_ms_per_launch": {k: g["device_ms_per_launch"] for k, g in groups.items()},
+        "ms_by_group": {k: g["ms"] for k, g in groups.items()},
     }
     return {"max_abs_err": max_err, "tolerance": 0, "digit_exact": True, "inf_exact": True,
             "by_group": groups}
@@ -530,6 +606,7 @@ def phase_kernels(ctx):
             "ms": fp_main["ms"], "plain_ms": fp_main["plain_ms"],
             "bound_ms": fp_main["bound_ms"], "bound_by": fp_main["bound_by"],
             "library_ms": None,
+            "device_ms_per_launch": fp_main.get("device_ms_per_launch"),
         },
         {
             "name": "sha3_256", "route": "cuda",
@@ -540,6 +617,9 @@ def phase_kernels(ctx):
             "ms": sha["ms"], "plain_ms": sha["plain_ms"],
             "bound_ms": sha["bound_ms"], "bound_by": sha["bound_by"],
             "library_ms": None,
+            "device_ms_per_launch": {k: v["device_ms_per_launch"]
+                                     for k, v in ctx["sha3"]["shapes"].items()},
+            "shape": f"{ctx['sha3']['main']} (the Merkle leaf level)",
         },
         {
             "name": "ladder_lazy", "route": "cuda",
@@ -550,6 +630,8 @@ def phase_kernels(ctx):
             "ms": lad["ms"], "plain_ms": lad["plain_ms"],
             "bound_ms": lad["bound_ms"], "bound_by": lad["bound_by"],
             "library_ms": None,
+            "ms_by_group": lad["ms_by_group"],
+            "device_ms_per_launch": lad["device_ms_per_launch"],
             "shape": "the epoch's two launches summed: G1 256 rows + G2 128 rows, 132 bits",
         },
     ]
@@ -576,7 +658,16 @@ def main() -> int:
 
     from hbbft_tpu_torch.parallel.rbc import _frame_shard_len
 
-    ctx = {"smi": smi_line()}
+    ctx = {"smi": smi("name,power.limit")}
+    # the int32 ceilings: every SM at the maximum clock
+    ctx["max_sm_clock_mhz"] = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctx["sm_clocks_per_s"] = sms * ctx["max_sm_clock_mhz"] * 1e6
+    emit({"peak": {"max_sm_clock_mhz": ctx["max_sm_clock_mhz"], "sms": sms,
+                   "alu_or_fma_pipe_per_clock_per_sm": PIPE_PER_CLOCK_PER_SM,
+                   "dispatch_per_clock_per_sm": DISPATCH_PER_CLOCK_PER_SM,
+                   "pipe_ops_per_s": PIPE_PER_CLOCK_PER_SM * ctx["sm_clocks_per_s"],
+                   "bytes_per_s": PEAK_BYTES_PER_S}})
     # shard bytes of the epoch's ciphertexts (294-byte TPKE header + body)
     ctx["leaf_bytes"] = _frame_shard_len([bytes(294 + CONTRIB_BYTES)], N_NODES - 2 * 21)
     phases = [("build", phase_build), ("kernel_fp_mul_lazy", phase_kernel_fp),

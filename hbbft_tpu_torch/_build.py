@@ -122,7 +122,8 @@ def build_all(force: bool = False) -> Dict[str, dict]:
             log = _finish(n, proc, tmp)
             out[n] = {
                 "seconds": time.perf_counter() - t0,
-                "ptxas": [ln for ln in log.splitlines() if "ptxas" in ln],
+                "ptxas": [ln.strip() for ln in log.splitlines()
+                          if "ptxas" in ln or "spill" in ln],
             }
         return out
 

@@ -6,17 +6,17 @@
 // (NL=30, R) columns of 13-bit digits: limb i of row r at [i*R + r].
 //
 // What bounds it on this card: per row it moves 360 bytes (two 30-limb
-// inputs, one 30-limb output) and does ~5.8k int32 operations (900
+// inputs, one 30-limb output) and does ~3.9k int32 instructions (900
 // multiply-adds of the convolution, 930 of the fold, the carry passes), so
-// it is bound by operations (~16 per byte), and at the few hundred rows
-// of a ladder by launch latency.
+// it is bound by operations, and at the few hundred rows of a ladder by
+// launch latency.
 //
-// Design: the multiply is fp_lazy.cuh's warp-cooperative fp_mul — lane l
-// holds digit l, a carry pass is one shuffle — which the whole-ladder
-// kernel (ladder_lazy.cu) calls in every step; this kernel runs it on one row per warp,
-// so it is the one implementation of the lazy multiply in CUDA and is held
-// digit for digit against the plain version on its own.  Blocks of 4 warps
-// (4 rows) share one staged copy of the residue rows.
+// Design: the multiply is fp_lazy.cuh's warp-cooperative product — lane l
+// holds digit l, the operands sit in shared memory, the carry passes run on
+// shuffled windows — which the whole-ladder kernel (ladder_lazy.cu) runs in
+// every step; this kernel runs it on one row per warp, so it is the one
+// implementation of the lazy multiply in CUDA and is held digit for digit
+// against the plain version on its own.  Blocks of 4 warps (4 rows).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,13 +32,19 @@ fp_mul_lazy_kernel(const int32_t* __restrict__ a,
                    const int32_t* __restrict__ b,
                    const int32_t* __restrict__ fold,
                    int32_t* __restrict__ out, int R) {
-  hb::stage_consts(fold, nullptr);
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  __shared__ __align__(16) int32_t s_ab[kWarps][2][32];
+  __shared__ __align__(16) int32_t s_scratch[kWarps][192];
+  hb::FieldLane f;
+  hb::load_field(f, fold, nullptr);
+  const int w = threadIdx.x >> 5;
+  hb::zero_scratch(s_scratch[w]);
+  const int r = blockIdx.x * kWarps + w;
   if (r >= R) return;  // warp-uniform
   const int l = hb::lane_id();
-  const int32_t av = l < hb::NL ? a[l * R + r] : 0;
-  const int32_t bv = l < hb::NL ? b[l * R + r] : 0;
-  const int32_t o = hb::fp_mul(av, bv);
+  s_ab[w][0][l] = l < hb::NL ? a[l * R + r] : 0;
+  s_ab[w][1][l] = l < hb::NL ? b[l * R + r] : 0;
+  __syncwarp();
+  const int32_t o = hb::squeeze(hb::fp_mul_unsqueezed(s_ab[w][0], s_ab[w][1], s_scratch[w], f), f);
   if (l < hb::NL) out[l * R + r] = o;
 }
 

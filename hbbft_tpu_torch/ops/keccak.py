@@ -2,9 +2,9 @@
 
 Counterpart of ``hbbft_tpu/ops/keccak.py`` (``keccak_f1600`` and
 ``sha3_256``).  :func:`sha3_256` is the wrapper the Merkle code calls: on a
-CUDA tensor it launches ``csrc/keccak.cu`` (one thread per message, the
-whole absorb loop in registers) or raises; on a CPU tensor it runs
-:func:`sha3_256_plain`.
+CUDA tensor it launches ``csrc/keccak.cu`` (two threads per message, one
+32-bit half of every lane each, the whole absorb loop in registers) or
+raises; on a CPU tensor it runs :func:`sha3_256_plain`.
 
 The plain version holds each 64-bit lane in an int64.  PyTorch has no
 ``>>`` on uint64 on the CPU and ``>>`` on int64 is arithmetic, so every

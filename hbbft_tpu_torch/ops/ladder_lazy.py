@@ -4,8 +4,11 @@ Counterpart of ``hbbft_tpu/ops/gcurve.py :: scalar_mul_lazy`` — on the TPU
 one XLA program (a ``jax.lax.fori_loop`` over point_double, point_add_raw,
 three point_selects and the infinity flag) around the lazy multiply that
 ``hbbft_tpu/ops/pallas_fp.py`` writes as a Pallas kernel.  Here it is one
-launch of ``csrc/ladder_lazy.cu``: one warp per row, every step on chip,
-the lazy field from ``csrc/fp_lazy.cuh``.  Digit-exact and inf-exact with
+launch of ``csrc/ladder_lazy.cu``: one block of warps per row (3 for G1, 8
+for G2) running the step's independent field operations side by side from
+the static schedule of :mod:`hbbft_tpu_torch.ops.ladder_schedule`, every
+step on chip, the lazy field from ``csrc/fp_lazy.cuh``.  Digit-exact and
+inf-exact with
 :func:`hbbft_tpu_torch.ops.gcurve.scalar_mul_lazy_plain`, its plain version,
 which :func:`hbbft_tpu_torch.ops.gcurve.scalar_mul_lazy` runs on CPU
 tensors.
