@@ -1,0 +1,216 @@
+"""GF(2^16) arithmetic — the erasure field for N > 256 networks, in PyTorch.
+
+Counterpart of ``hbbft_tpu/ops/gf16.py``.  The reference's
+``reed-solomon-erasure`` crate (and the GF(2^8) coder of
+:mod:`hbbft_tpu_torch.ops.gf256`) caps total shards at 256, so larger
+networks switch to GF(2^16) (poly x¹⁶+x¹²+x³+x+1 = 0x1100B, generator 2):
+up to 65536 shards.
+
+1. **Host (numpy)** — log/exp tables, matrix construction and inversion.
+2. **Device (torch)** — a constant GF(2^16) matrix is GF(2)-linear, so
+   applying it is one 0/1 matrix product on (16·k → 16·r) bit vectors
+   (:func:`gf256.bitplane_parity`); symbols are u16, stored as
+   little-endian byte pairs in shards.  PyTorch's ``uint16`` has no ``>>``
+   on the CPU, so symbols and table indices live in int32/int64 and turn
+   into bytes only at the edges.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hbbft_tpu_torch.ops import gf256
+
+GF16_POLY = 0x1100B
+GF16_GEN = 2
+ORDER = 1 << 16
+
+# ---------------------------------------------------------------------------
+# Host tables
+# ---------------------------------------------------------------------------
+
+
+def _build_tables():
+    exp = np.zeros(2 * ORDER, dtype=np.uint32)
+    log = np.zeros(ORDER, dtype=np.int64)
+    x = 1
+    for i in range(ORDER - 1):
+        exp[i] = x
+        log[x] = i
+        x <<= 1
+        if x & ORDER:
+            x ^= GF16_POLY
+    for i in range(ORDER - 1, 2 * ORDER):
+        exp[i] = exp[i - (ORDER - 1)]
+    return exp, log
+
+
+GF_EXP, GF_LOG = _build_tables()
+
+
+def gf_mul(a, b):
+    """Elementwise GF(2^16) multiply (numpy uint16-compatible arrays)."""
+    a = np.asarray(a, dtype=np.uint32)
+    b = np.asarray(b, dtype=np.uint32)
+    r = GF_EXP[(GF_LOG[a] + GF_LOG[b]) % (ORDER - 1)]
+    return np.where((a != 0) & (b != 0), r, 0).astype(np.uint16)
+
+
+def gf_inv(a):
+    a = np.asarray(a)
+    if np.any(a == 0):
+        raise ZeroDivisionError("GF(2^16) inverse of 0")
+    return GF_EXP[(ORDER - 1) - GF_LOG[a]].astype(np.uint16)
+
+
+def gf_pow(a: int, n: int) -> int:
+    if n == 0:
+        return 1
+    if a == 0:
+        return 0
+    return int(GF_EXP[(int(GF_LOG[a]) * n) % (ORDER - 1)])
+
+
+def gf_matmul_np(A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """GF(2^16) matrix product (host). A: (r, k), B: (k, c) → (r, c)."""
+    A = np.asarray(A, dtype=np.uint16)
+    B = np.asarray(B, dtype=np.uint16)
+    r, k = A.shape
+    assert k == B.shape[0]
+    out = np.zeros((r, B.shape[1]), dtype=np.uint16)
+    for i in range(k):
+        out ^= gf_mul(A[:, i][:, None], B[i][None, :])
+    return out
+
+
+def gf_inv_matrix_np(M: np.ndarray) -> np.ndarray:
+    """Gauss–Jordan inversion over GF(2^16) (host)."""
+    M = np.asarray(M, dtype=np.uint16)
+    n = M.shape[0]
+    aug = np.concatenate([M.copy(), np.eye(n, dtype=np.uint16)], axis=1)
+    for col in range(n):
+        piv = col + int(np.argmax(aug[col:, col] != 0))
+        if aug[piv, col] == 0:
+            raise np.linalg.LinAlgError("singular GF(2^16) matrix")
+        if piv != col:
+            aug[[col, piv]] = aug[[piv, col]]
+        aug[col] = gf_mul(aug[col], gf_inv(aug[col, col]))
+        mask = aug[:, col].copy()
+        mask[col] = 0
+        aug ^= gf_mul(mask[:, None], aug[col][None, :])
+    return aug[:, n:].copy()
+
+
+def vandermonde(rows: int, cols: int) -> np.ndarray:
+    """V[r, c] = r^c, vectorized (0^0 = 1, as the coder takes it)."""
+    r = np.arange(rows, dtype=np.int64)
+    c = np.arange(cols, dtype=np.int64)
+    expnt = (GF_LOG[r][:, None] * c[None, :]) % (ORDER - 1)
+    V = GF_EXP[expnt].astype(np.uint16)
+    V[0, :] = 0
+    V[:, 0] = 1
+    return V
+
+
+def gf_matrix_to_bits(M: np.ndarray) -> np.ndarray:
+    """(r, k) GF(2^16) matrix → (k·16, r·16) GF(2) bit matrix (int8).
+
+    ``A[k·16+i, j·16+b]`` = bit b of ``gf_mul(M[j, k], 1 << i)``, bits
+    LSB-first, so ``(bits(D) @ A) & 1`` applies M to symbol vectors D.
+    """
+    M = np.asarray(M, dtype=np.uint16)
+    r, k = M.shape
+    powers = (1 << np.arange(16)).astype(np.uint32)
+    prod = gf_mul(M[:, :, None], powers[None, None, :])  # (r, k, 16)
+    bits = (prod[..., None].astype(np.uint32) >> np.arange(16)) & 1
+    A = bits.transpose(1, 2, 0, 3).reshape(k * 16, r * 16)
+    return A.astype(np.int8)
+
+
+# ---------------------------------------------------------------------------
+# Device path (torch)
+# ---------------------------------------------------------------------------
+
+_DEV_TABLES: dict = {}
+
+
+def _tables(device):
+    """(exp int64 (2·ORDER,), log int64 (ORDER,), shifts int32 (16,)) on
+    ``device``."""
+    hit = _DEV_TABLES.get(device)
+    if hit is None:
+        hit = _DEV_TABLES[device] = (
+            torch.from_numpy(GF_EXP.astype(np.int64)).to(device),
+            torch.from_numpy(GF_LOG).to(device),
+            torch.arange(16, dtype=torch.int32, device=device),
+        )
+    return hit
+
+
+def gf_mul_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise GF(2^16) multiply of two runtime symbol tensors (any
+    integer dtype holding values < 2^16) via log/exp gathers → int32."""
+    exp, log, _ = _tables(a.device)
+    ai, bi = a.long(), b.long()
+    r = exp[(log[ai] + log[bi]) % (ORDER - 1)]
+    return torch.where((ai != 0) & (bi != 0), r, 0).to(torch.int32)
+
+
+def gf_inv_torch(a: torch.Tensor) -> torch.Tensor:
+    """Elementwise GF(2^16) inverse → int32; maps 0 → 0 (caller masks)."""
+    exp, log, _ = _tables(a.device)
+    ai = a.long()
+    r = exp[(ORDER - 1) - log[ai]]
+    return torch.where(ai != 0, r, 0).to(torch.int32)
+
+
+def gf_inv_matrix_torch(M: torch.Tensor) -> tuple:
+    """Batched GF(2^16) matrix inversion: (..., n, n) symbols → (inv int32,
+    ok) — the field-generic Gauss–Jordan of ``gf256`` (first-nonzero
+    pivot), bit-identical to :func:`gf_inv_matrix_np`."""
+    return gf256.gf_inv_matrix_impl(M, gf_mul_torch, gf_inv_torch, torch.int32)
+
+
+def gf_matrix_to_bits_torch(M: torch.Tensor) -> torch.Tensor:
+    """Batched :func:`gf_matrix_to_bits`: (..., r, k) symbols → int8
+    (..., k*16, r*16), same layout as the host function."""
+    r, k = M.shape[-2:]
+    shifts = _tables(M.device)[2]
+    prod = gf_mul_torch(M[..., None], 1 << shifts)  # (..., r, k, 16)
+    bits = (prod[..., None] >> shifts) & 1  # (..., r, k, i, b)
+    A = bits.movedim(-4, -2)  # (..., k, i, r, b)
+    return A.reshape(*M.shape[:-2], k * 16, r * 16).to(torch.int8)
+
+
+def bytes_to_symbol_bits(x: torch.Tensor) -> torch.Tensor:
+    """uint8 (..., k, B) shards → int8 bits (..., B//2, k*16).
+
+    Symbols are u16 from little-endian byte pairs along the shard; B must
+    be even.  Output layout matches :func:`gf_matrix_to_bits`."""
+    *lead, k, B = x.shape
+    shifts = _tables(x.device)[2][:8]
+    sym = x.reshape(*lead, k, B // 2, 2).to(torch.int32)
+    bits = (sym[..., None] >> shifts) & 1  # (..., k, B/2, 2, 8): lo, hi
+    bits = bits.reshape(*lead, k, B // 2, 16).transpose(-3, -2)
+    return bits.reshape(*lead, B // 2, k * 16).to(torch.int8)
+
+
+def symbol_bits_to_bytes(bits: torch.Tensor, r: int) -> torch.Tensor:
+    """int (..., B//2, r*16) bits → uint8 (..., r, B)."""
+    *lead, half, _ = bits.shape
+    shifts = _tables(bits.device)[2][:8]
+    b = bits.reshape(*lead, half, r, 2, 8).to(torch.int32)
+    sym = (b << shifts).sum(dim=-1)  # (..., B/2, r, 2): lo, hi bytes
+    return sym.transpose(-3, -2).reshape(*lead, r, half * 2).to(torch.uint8)
+
+
+def gf_apply_bitmatrix(data: torch.Tensor, bitmat: torch.Tensor) -> torch.Tensor:
+    """Apply a GF(2^16) matrix to shard bytes.
+
+    data: uint8 (..., k, B) with even B; bitmat (k*16, r*16) from
+    :func:`gf_matrix_to_bits`, or batched (..., k*16, r*16) from
+    :func:`gf_matrix_to_bits_torch`.  Returns uint8 (..., r, B), through
+    :func:`gf256.bitplane_parity`."""
+    obits = gf256.bitplane_parity(bytes_to_symbol_bits(data), bitmat)
+    return symbol_bits_to_bytes(obits, bitmat.shape[-1] // 16)

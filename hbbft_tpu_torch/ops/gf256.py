@@ -8,9 +8,8 @@ generator 2, the ``reed-solomon-erasure`` crate's field (counterpart of
 2. **Device (torch)** — multiplication by a constant GF(2^8) matrix is
    linear over GF(2), so it lowers to ONE 0/1 matrix product: expand bytes
    to bits, multiply by the 8×-expanded bit matrix, take parity (``& 1``),
-   repack.  CUDA's ``torch.matmul`` has no int8 product, so the bit planes
-   are contracted in float32, which is exact: at most k·8 ≤ 2048 ones are
-   summed, far below 2^24.
+   repack.  :func:`bitplane_parity` holds that product and its exactness
+   rule for this field and for GF(2^16) (``ops/gf16.py``).
 """
 
 from __future__ import annotations
@@ -159,23 +158,37 @@ def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
     return (b << shifts).sum(dim=-1).to(torch.uint8)
 
 
+def bitplane_parity(bits: torch.Tensor, bitmat: torch.Tensor) -> torch.Tensor:
+    """``(bits @ bitmat) & 1`` for 0/1 operands, exactly: int32 (..., m).
+
+    bits: (..., d) 0/1; bitmat: (d, m) or batched (..., d, m) 0/1, moved to
+    ``bits``'s device.  The GF(2) product of both fields' coders, as one
+    ``torch.matmul`` (CUDA has no int8 product there).  It contracts in
+    float32, and that is exact: each product is 0 or 1, and every partial
+    sum is an integer of at most ``d`` < 2^24, which float32 holds without
+    rounding.  TF32 would be exact as well (0 and 1 survive its 10-bit
+    mantissa, and it accumulates in float32), so the result does not
+    depend on ``torch.backends.cuda.matmul.allow_tf32``, and this function
+    leaves that process-wide setting alone.
+    """
+    depth = bits.shape[-1]
+    if depth >= 1 << 24:
+        raise ValueError(f"a bit-plane sum of {depth} terms is not exact in float32")
+    prod = torch.matmul(
+        bits.to(torch.float32), bitmat.to(device=bits.device, dtype=torch.float32)
+    )
+    return prod.to(torch.int32) & 1
+
+
 def gf_apply_bitmatrix(data: torch.Tensor, bitmat: torch.Tensor) -> torch.Tensor:
     """Apply a GF(2^8) matrix to byte data.
 
     data: uint8 (..., B, k); bitmat: (k*8, r*8) from
     :func:`gf_matrix_to_bits`, or batched (..., k*8, r*8) from
     :func:`gf_matrix_to_bits_torch` broadcast-compatible with ``data``.
-    Returns uint8 (..., B, r).
-
-    The bit planes contract as float32 (exact: sums ≤ k·8 ≤ 2048).  TF32
-    would round them, so it is switched off here, on purpose, for the
-    whole process.
+    Returns uint8 (..., B, r), through :func:`bitplane_parity`.
     """
-    if data.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    dbits = bytes_to_bits(data).to(torch.float32)
-    prod = torch.matmul(dbits, bitmat.to(device=data.device, dtype=torch.float32))
-    return bits_to_bytes(prod.to(torch.int32) & 1)
+    return bits_to_bytes(bitplane_parity(bytes_to_bits(data), bitmat))
 
 
 def gf_mul_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

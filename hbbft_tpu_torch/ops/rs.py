@@ -1,22 +1,24 @@
-"""Systematic Vandermonde Reed–Solomon erasure coding over GF(2^8).
+"""Systematic Vandermonde Reed–Solomon erasure coding.
 
-Counterpart of ``hbbft_tpu/ops/rs.py`` for networks of at most 256 shards:
-the same encode matrix (Vandermonde(total, data) normalised by the inverse
-of its top data×data block, so the first ``data`` rows are the identity),
-applied on the device as one bit-plane product
-(:func:`hbbft_tpu_torch.ops.gf256.gf_apply_bitmatrix`) batched over any
-leading axes.  The GF(2^16) coder for N > 256 is not ported yet.
+Counterpart of ``hbbft_tpu/ops/rs.py``: the same encode matrix
+(Vandermonde(total, data) normalised by the inverse of its top data×data
+block, so the first ``data`` rows are the identity), applied on the device
+as one bit-plane product batched over any leading axes.
+:class:`ReedSolomon` works over GF(2^8) (at most 256 shards, bit-exact with
+the reference's crate); :class:`ReedSolomon16` over GF(2^16) for larger
+networks (up to 65536 shards).  :func:`for_n_f` picks the field.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from hbbft_tpu_torch.ops import gf256
+from hbbft_tpu_torch.ops import gf16, gf256
 
 _DECODE_CACHE_MAX = 512
 
@@ -86,11 +88,115 @@ class ReedSolomon:
         return out.transpose(-1, -2)
 
 
+class ReedSolomon16:
+    """Systematic Vandermonde RS over GF(2^16), for N > 256 networks.
+
+    The construction of :class:`ReedSolomon` in the 65536-element field:
+    shard symbols are u16 little-endian byte pairs, so a shard's length
+    must be even.  Host encode and decode, and the device encode."""
+
+    def __init__(self, data_shards: int, parity_shards: int):
+        if data_shards < 1:
+            raise ValueError("data_shards must be >= 1")
+        if data_shards + parity_shards > (1 << 16):
+            raise ValueError("total shards must be <= 65536 over GF(2^16)")
+        self.data_shards = data_shards
+        self.parity_shards = parity_shards
+        self.total_shards = data_shards + parity_shards
+        # the construction is O(total·data²) table lookups (~10 minutes at
+        # 4096 shards), so its matrix is cached on disk
+        cache_dir = os.path.join(os.path.expanduser("~"), ".cache", "hbbft_tpu_torch")
+        cache = os.path.join(cache_dir, f"rs16_{data_shards}_{parity_shards}.npz")
+        if os.path.exists(cache):
+            self.matrix = np.load(cache)["matrix"]
+        else:
+            V = gf16.vandermonde(self.total_shards, data_shards)
+            top_inv = gf16.gf_inv_matrix_np(V[:data_shards])
+            self.matrix = gf16.gf_matmul_np(V, top_inv)
+            try:  # written whole, then renamed: a reader never sees half a file
+                os.makedirs(cache_dir, exist_ok=True)
+                tmp = f"{cache}.{os.getpid()}.tmp"
+                with open(tmp, "wb") as fh:
+                    np.savez_compressed(fh, matrix=self.matrix)
+                os.replace(tmp, cache)
+            except OSError:
+                pass
+        if not np.array_equal(
+            self.matrix[:data_shards], np.eye(data_shards, dtype=np.uint16)
+        ):
+            raise ValueError(f"{cache}: not a systematic encode matrix")
+        self.parity_matrix = self.matrix[data_shards:]
+        self._parity_bits = gf16.gf_matrix_to_bits(self.parity_matrix)
+        self._decode_cache: dict = {}
+        # device → (parity bits f32, encode matrix i32), made once per device
+        self._dev: dict = {}
+
+    def _on(self, device):
+        hit = self._dev.get(device)
+        if hit is None:
+            hit = self._dev[device] = (
+                torch.from_numpy(self._parity_bits).to(device, torch.float32),
+                torch.from_numpy(self.matrix.astype(np.int32)).to(device),
+            )
+        return hit
+
+    def matrix_on(self, device) -> torch.Tensor:
+        """The (total, data) encode matrix as int32 symbols on ``device``."""
+        return self._on(device)[1]
+
+    @staticmethod
+    def _to_symbols(shards: np.ndarray) -> np.ndarray:
+        B = shards.shape[-1]
+        if B % 2:
+            raise ValueError(f"GF(2^16) shards need an even byte length, got {B}")
+        s = shards.reshape(*shards.shape[:-1], B // 2, 2).astype(np.uint16)
+        return s[..., 0] | (s[..., 1] << 8)
+
+    @staticmethod
+    def _from_symbols(sym: np.ndarray) -> np.ndarray:
+        lo = (sym & 0xFF).astype(np.uint8)
+        hi = (sym >> 8).astype(np.uint8)
+        return np.stack([lo, hi], axis=-1).reshape(*sym.shape[:-1], sym.shape[-1] * 2)
+
+    def encode_np(self, data: np.ndarray) -> np.ndarray:
+        """Host encode: data (data_shards, B) uint8 → (total_shards, B)."""
+        data = np.asarray(data, dtype=np.uint8)
+        assert data.shape[0] == self.data_shards
+        if self.parity_shards == 0:
+            return data.copy()
+        parity = gf16.gf_matmul_np(self.parity_matrix, self._to_symbols(data))
+        return np.concatenate([data, self._from_symbols(parity)], axis=0)
+
+    def encode(self, data: torch.Tensor) -> torch.Tensor:
+        """uint8 (..., data_shards, B) → (..., total_shards, B), B even."""
+        if self.parity_shards == 0:
+            return data
+        parity = gf16.gf_apply_bitmatrix(data, self._on(data.device)[0])
+        return torch.cat([data, parity], dim=-2)
+
+    def decode_matrix(self, use: Tuple[int, ...]) -> np.ndarray:
+        """Inverse of the encode-matrix rows of the surviving shards ``use``
+        (the survivor-pattern Gauss–Jordan, cached per pattern)."""
+        dec = self._decode_cache.get(use)
+        if dec is None:
+            if len(self._decode_cache) >= _DECODE_CACHE_MAX:
+                self._decode_cache.clear()
+            dec = self._decode_cache[use] = gf16.gf_inv_matrix_np(
+                self.matrix[list(use)]
+            )
+        return dec
+
+    def reconstruct_data_np(self, survivors: np.ndarray, use: Tuple[int, ...]) -> np.ndarray:
+        """(data, B) data shards from the survivor rows ``use`` (host): the
+        decode matrix applied with :func:`gf16.gf_matmul_np`."""
+        dec = self.decode_matrix(tuple(use))
+        return self._from_symbols(gf16.gf_matmul_np(dec, self._to_symbols(survivors)))
+
+
 @functools.lru_cache(maxsize=256)
-def for_n_f(n: int, f: int) -> ReedSolomon:
-    """The RBC coder for an (n, f) network: data = n−2f, parity = 2f."""
-    if n > 256:
-        raise NotImplementedError(
-            "N > 256 needs the GF(2^16) coder, which is not ported yet"
-        )
-    return ReedSolomon(n - 2 * f, 2 * f)
+def for_n_f(n: int, f: int):
+    """The RBC coder for an (n, f) network: data = n−2f, parity = 2f —
+    GF(2^8) up to 256 shards, GF(2^16) beyond."""
+    if n <= 256:
+        return ReedSolomon(n - 2 * f, 2 * f)
+    return ReedSolomon16(n - 2 * f, 2 * f)

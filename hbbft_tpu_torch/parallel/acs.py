@@ -24,6 +24,11 @@ from hbbft_tpu_torch.parallel.aba import BatchedAba, coin_for, coins_for_epoch
 from hbbft_tpu_torch.parallel.rbc import BatchedRbc, frame_values, unframe_value
 
 
+def _host(x) -> np.ndarray:
+    """A tensor's values as a numpy array; host arrays pass through."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _hash_coin(p: int, e: int) -> bool:
     return bool(hashlib.sha3_256(b"acs-coin%d-%d" % (p, e)).digest()[0] & 1)
 
@@ -51,20 +56,36 @@ class BatchedAcs:
         (N, P), ``data`` (N_recv, P, k, B), ``delivered`` (N, P),
         ``data_receivers``, ``rbc_fault`` and ``epochs`` as numpy arrays —
         or, with ``compact=True``, ``accepted_row``, ``accepted_agree``,
-        ``delivered_ok`` and ``data_sel`` (P, k, B).
+        ``delivered_ok`` and ``data_sel`` (P, k, B).  At N > 256 with full
+        delivery the RBC round takes the scale path (one shared data row,
+        ``data_receivers == [0]``).
 
         coin_fn(p, epoch) -> bool supplies the random-epoch coins (default:
         a deterministic hash); coin_batch_fn(epoch) -> N bools, when set,
         covers the whole instance axis in one call."""
         n = self.n
         dev = self.device
-        data = torch.from_numpy(frame_values(list(values), self.rbc.k)).to(dev)
+        if self.rbc.large and all(
+            rbc_kwargs.get(m) is None
+            for m in ("value_mask", "echo_mask", "ready_mask", "receivers")
+        ):
+            # the scale path: upload the framed bytes, pad on the device
+            data = self.rbc.upload_framed(list(values), dev)
+        else:
+            data = torch.from_numpy(frame_values(list(values), self.rbc.k)).to(dev)
         out = self.rbc.run(data, **rbc_kwargs)
         delivered = out["delivered"]
         if coin_fn is None:
             coin_fn = _hash_coin
 
-        st = self.aba.init_state(delivered)
+        if isinstance(delivered, np.ndarray):
+            # the scale path's host verdicts are one row broadcast over N:
+            # upload that row and broadcast it on the device
+            est_in = torch.from_numpy(np.array(delivered[0])).to(dev)
+            est_in = est_in[None].expand(delivered.shape)
+        else:
+            est_in = delivered
+        st = self.aba.init_state(est_in)
         epochs = 0
         while not bool(st["decided"].all()):
             if epochs >= max_epochs:
@@ -89,30 +110,34 @@ class BatchedAcs:
             decision = st["decision"]
             row = decision[0].cpu().numpy()
             agree = bool((decision == decision[0][None, :]).all())
-            delivered_np = delivered.cpu().numpy()
+            delivered_np = _host(delivered)
             any_deliv = delivered_np.any(axis=0)
             delivered_ok = bool((~row | any_deliv).all())
             src = delivered_np.argmax(axis=0)  # first delivering node
-            recv = out["data_receivers"].cpu().numpy()
+            recv = _host(out["data_receivers"])
             inv = np.zeros(n, dtype=np.int64)
             inv[recv] = np.arange(len(recv))
-            sel = out["data"][
-                torch.from_numpy(inv[src]).to(dev), torch.arange(len(src), device=dev)
-            ]
+            data = out["data"]
+            if isinstance(data, torch.Tensor):
+                sel = data[
+                    torch.from_numpy(inv[src]).to(dev), torch.arange(len(src), device=dev)
+                ].cpu().numpy()
+            else:
+                sel = data[inv[src], np.arange(len(src))]
             return {
                 "accepted_row": row,
                 "accepted_agree": agree,
                 "delivered_ok": delivered_ok,
-                "data_sel": sel.cpu().numpy(),
+                "data_sel": sel,
                 "epochs": epochs,
             }
 
         return {
             "accepted": st["decision"].cpu().numpy(),
-            "delivered": delivered.cpu().numpy(),
-            "data": out["data"].cpu().numpy(),
-            "data_receivers": out["data_receivers"].cpu().numpy(),
-            "rbc_fault": out["fault"].cpu().numpy(),
+            "delivered": _host(delivered),
+            "data": _host(out["data"]),
+            "data_receivers": _host(out["data_receivers"]),
+            "rbc_fault": _host(out["fault"]),
             "epochs": epochs,
         }
 

@@ -41,6 +41,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     for make in (
         lambda: BatchedHoneyBadgerEpoch(nets),
         lambda: BatchedAcs(4, 1),
+        lambda: BatchedAcs(1024, 341),
         lambda: batch.batch_tpke_encrypt_device(None, [b"x"], [1]),
         lambda: batch.cache_for("cuda"),
     ):
