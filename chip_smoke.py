@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of the HoneyBadger epoch on one NVIDIA card.
+"""Drive the PyTorch port of the HoneyBadger epoch and its threshold crypto
+on one NVIDIA card.
 
-    python3 chip_smoke.py            # build, kernel checks, N = 64 and N = 1024 epochs
+    python3 chip_smoke.py            # build, kernel checks, epochs, coin256, dkg256
 
 Phases, one JSON line each; any failure exits non-zero:
 
-1. ``build``: nvcc builds the three kernels from ``hbbft_tpu_torch/csrc``
+1. ``build``: nvcc builds the four kernels from ``hbbft_tpu_torch/csrc``
    for sm_90a (one nvcc per source, started together) while the native BLS
    oracle builds beside them.
 2. ``kernel_fp_mul_lazy``: Kernel 1 (the warp-per-row lazy multiply)
@@ -17,35 +18,56 @@ Phases, one JSON line each; any failure exits non-zero:
    shard each and 2048 interior pairs of 64 bytes; at N = 1024 the 65 536
    leaves of one 64-proposer chunk), timed there by CUDA events and by the
    profiler's device time per launch.
-4. ``kernel_ladder``: the whole-ladder kernel against the plain stepwise
-   ladder on the card (plain multiply, no kernel), digit-exact and
-   inf-exact, at the epochs' shapes (N = 64: G1 256 rows, G2 128 rows;
-   N = 1024: G1 4096, G2 2048; 132 bits) with edge rows (a zero scalar,
-   all-ones bits, base_inf padding) and at ragged row counts (G1: 1, 3,
-   33, 129; G2: 1, 3, 65), and against the native oracle's affine points on
-   five rows of each epoch shape; each shape's G1 and G2 timed apart.
-5. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
+4. ``kernel_ladder``: the bitwise whole-ladder kernel against the plain
+   stepwise ladder on the card (plain multiply, no kernel), digit-exact and
+   inf-exact, at the encrypt shapes of both epochs (N = 64: G1 256 rows,
+   G2 128 rows; N = 1024: G1 4096, G2 2048; 132 bits) with edge rows (a
+   zero scalar, all-ones bits, base_inf padding) and at ragged row counts
+   (G1: 1, 3, 33, 129; G2: 1, 3, 65), and against the native oracle's
+   affine points on five rows of each epoch shape; each shape timed.  No
+   path runs this kernel now (the windowed one was faster at every size
+   measured); it stays held against its plain version.
+5. ``kernel_ladder_window``: the 4-bit windowed kernel, the one every path
+   runs, against its plain version, digit- and inf-exact, at G1 256 / 37 /
+   4 096 / 16 384 rows (N = 64 and coin256, ragged, N = 1024, dkg256's
+   forced device route) and G2 128 / 256 / 37 / 2 048 rows, with the same
+   edge rows, three rows each against the native oracle; timed with its
+   bound.
+6. ``ladder_crossover``: both ladder kernels at 256 … 65 536 rows, G1 and
+   G2, ms of one launch each by CUDA events: why every dispatch runs the
+   windowed kernel.
+7. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
    contributions) with the TPKE encrypt ladders on the card: a warm run
    whose ciphertexts are held against the native oracle's, then 5 timed
    runs, each with every kernel's launch counter reset just before it and
-   read just after (the ladder kernel 2 launches, SHA3 21, Kernel 1 none).
-6. ``profile``: the device's busy share (kernel time from torch.profiler
+   read just after (2 windowed ladder launches, SHA3 21, Kernel 1 none).
+8. ``profile``: the device's busy share (kernel time from torch.profiler
    over wall time) and kernel launches, over the whole encrypt phase and
    over ACS + decrypt.
-7. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
+9. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
    1 024 proposers with the GF(2^16) coder: full delivery (every verdict
    and value; four proposers' shards equal to the host ``encode_np`` and
    their roots to hashlib's), data shards altered after the commit (the
    straggler decode and the re-check stage), a framing fault; and the
    device time of the GF(2^16) encode of one 64-proposer chunk.
-8. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
-   contributions) through the scale path: keygen, a warm run held against
-   the native oracle's ciphertexts, 2 timed runs with launch counts as
-   derived from the code (ladder 2, SHA3 16 chunks × 11 Merkle levels,
-   Kernel 1 none), and one profiled run for the device's idle share and
-   the device time of the GF(2^16) product, SHA3 and the ladders.
-9. ``kernels``: every kernel with its launches, errors and times, at both
-   epochs' shapes.
+10. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
+    contributions) through the scale path: keygen, a warm run held against
+    the native oracle's ciphertexts, 2 timed runs with launch counts as
+    derived from the code (ladder 2, SHA3 16 chunks × 11 Merkle levels,
+    Kernel 1 none), and one profiled run for the device's idle share and
+    the device time of the GF(2^16) product, SHA3 and the ladders.
+11. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
+    ``batch_verify_sig_shares`` over 256 signature shares (True; False with
+    one share over another message; median of 3, its split into host
+    dispatch, ladder wait, fetch + host fold and pairing check; the
+    ladders' device ms and launches), the MSMs against the host's sums, and
+    ``batch_verify_dec_shares`` over 256 decryption shares (True; False
+    with one tampered).
+12. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
+    the forced device route against ``com.row(3)``, ``commitment_eval`` and
+    ``bivar_commitment`` on the forced route against their host values,
+    and the DKG and fold thresholds' crossovers, host against device.
+13. ``kernels``: every kernel with its launches, errors and times.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
 the card's int32 pipes (the ``peak`` line: an ALU and an FMA pipe of 64
@@ -125,11 +147,10 @@ N_NODES = 64
 CONTRIB_BYTES = 64000
 CIPHERTEXT_BYTES = 294 + CONTRIB_BYTES  # the TPKE header, then the body
 TIMED_EPOCHS = 5
-# launches of each kernel in one epoch: one G1 and one G2 ladder (64
-# proposers fit one encrypt chunk), 21 SHA3 batches (Merkle leaf level + 6
-# interior levels, for the commit, the proof checks and the root check);
-# Kernel 1 runs inside the ladder kernel, never on its own
-EPOCH_LAUNCHES = {"ladder_lazy": 2, "sha3_256": 21, "fp_mul_lazy": 0}
+# SHA3 launches in one N = 64 epoch: 21 batches (Merkle leaf level + 6
+# interior levels, for the commit, the proof checks and the root check)
+EPOCH_SHA3_LAUNCHES = 21
+LADDER_KERNELS = ("ladder_lazy", "ladder_window")
 # the scale path's configuration: N = 1024, f = 341 (k = 342 data shards of
 # 190 B for the same 64 000-byte contributions), through the GF(2^16) coder
 N_LARGE = 1024
@@ -147,18 +168,44 @@ def merkle_root_levels(n: int) -> int:
     return levels
 
 
+def ladder_launches(n: int) -> dict:
+    """Launches of both ladder kernels for ``n`` windowed ladders: every
+    dispatch runs the windowed kernel, none the bitwise one."""
+    return {"ladder_lazy": 0, "ladder_window": n}
+
+
+def encrypt_ladder_launches(n: int) -> dict:
+    """Ladder launches of one device-route TPKE encrypt of n proposers:
+    per encrypt chunk (``DEVICE_ENCRYPT_CHUNK`` proposers) one G1 and one
+    G2 ladder."""
+    from hbbft_tpu_torch.crypto.batch import DEVICE_ENCRYPT_CHUNK
+
+    return ladder_launches(2 * -(-n // DEVICE_ENCRYPT_CHUNK))
+
+
+def epoch_launches(n: int) -> dict:
+    """Launches of each kernel in one N = 64 epoch: the encrypt ladders,
+    ``EPOCH_SHA3_LAUNCHES`` SHA3 batches; Kernel 1 runs inside the ladder
+    kernels, never on its own."""
+    return {**encrypt_ladder_launches(n), "sha3_256": EPOCH_SHA3_LAUNCHES, "fp_mul_lazy": 0}
+
+
 def large_epoch_launches(n: int) -> dict:
-    """Launches of each kernel in one scale-path epoch, from the code: one
-    G1 and one G2 ladder per encrypt chunk (``DEVICE_ENCRYPT_CHUNK``
-    proposers), and per proposer chunk of the RBC round
+    """Launches of each kernel in one scale-path epoch, from the code: the
+    encrypt ladders, and per proposer chunk of the RBC round
     (``BatchedRbc._large_chunk_size``) one ``merkle_root``; stage B, which
     would hash as much again, is skipped because every shard matches."""
-    from hbbft_tpu_torch.crypto.batch import DEVICE_ENCRYPT_CHUNK
     from hbbft_tpu_torch.parallel.rbc import BatchedRbc
 
     chunks = n // BatchedRbc._large_chunk_size(n)
-    return {"ladder_lazy": 2 * -(-n // DEVICE_ENCRYPT_CHUNK),
+    return {**encrypt_ladder_launches(n),
             "sha3_256": chunks * merkle_root_levels(n), "fp_mul_lazy": 0}
+
+
+def check_launches(launches: dict, expected: dict, what: str) -> None:
+    """The launches of a run against those the code implies."""
+    if launches != expected:
+        raise AssertionError(f"{what} launches {launches}, expected {expected}")
 
 
 def emit(obj) -> None:
@@ -181,6 +228,35 @@ def ladder_ops(group: str, rows: int, nbits: int):
     step = ops_sum([FP_KIND_OPS[kinds[op[0]]] for ls in s.lists for op in ls], nbits)
     once = ops_sum([FP_KIND_OPS[kinds[op[0]]] for op in s.prologue])
     return ops_sum([step, once], rows)
+
+
+def ladder_window_ops(group: str, rows: int, nbits: int):
+    """int32 instructions of a whole windowed ladder by its tables
+    (ops/ladder_schedule.py): the table of 15 multiples (7 dbl and 7 addp
+    steps, the prologue on each entry), then a window each 4 bits: 3 dbl
+    steps and one step of the bitwise table.  The kernel's row copies are
+    not work the function needs and are not counted."""
+    from hbbft_tpu_torch.ops import ladder_schedule as LS
+
+    kinds = ("MUL", "ADD", "SUB", "SEL")
+
+    def table(kind):
+        return ops_sum([FP_KIND_OPS[kinds[op[0]]]
+                        for ls in LS.build(group, kind).lists for op in ls])
+
+    step, dbl, addp = (table(k) for k in LS.KINDS)
+    prologue = ops_sum([FP_KIND_OPS[kinds[op[0]]] for op in LS.build(group).prologue])
+    windows = nbits // 4
+    per_row = ops_sum([ops_sum([step], windows), ops_sum([dbl], 3 * windows + 7),
+                       ops_sum([addp], 7), ops_sum([prologue], 15)])
+    return ops_sum([per_row], rows)
+
+
+def ladder_bytes(rows: int, width: int, nbits: int) -> int:
+    """A ladder's bytes: the base point read and the result written (3
+    coordinates of 30 int32 digits over ``width`` columns), the bits read,
+    base_inf read and inf written."""
+    return 2 * 3 * 30 * width * 4 + rows * nbits * 4 + 2 * rows
 
 
 def bound_ms(ctx, n_bytes: float, ops):
@@ -228,22 +304,51 @@ def profiling(torch):
         torch.cuda.synchronize()
 
 
-def device_ms_per_launch(torch, fn, kernel: str, calls: int = 20, tries: int = 3):
+def device_ms_per_launch(torch, fn, kernel: str, calls: int = 20, tries: int = 3,
+                         detail: dict | None = None):
     """Device time of one launch of ``kernel`` (a substring of its name),
     from torch.profiler over ``calls`` calls of ``fn`` (each call launches
     it once).  A session that records another number of launches than it
     made is taken again, up to ``tries`` sessions; None when none records
-    them all."""
+    them all (the launches a short session does record are mis-timed:
+    PERF.md, run Q1).  ``detail`` (when given) gets the most launches a
+    session recorded."""
     fn()
     torch.cuda.synchronize()
+    most = 0
     for _ in range(tries):
         with profiling(torch) as prof:
             for _ in range(calls):
                 fn()
         hits = [e for e in prof.key_averages() if kernel in e.key and e.count]
-        if sum(e.count for e in hits) == calls:
-            return sum(e.self_device_time_total for e in hits) / calls / 1e3
-    return None
+        recorded = sum(e.count for e in hits)
+        most = max(most, recorded)
+        if recorded == calls:
+            break
+    if detail is not None:
+        detail.update({"launches_made": calls, "launches_recorded": most})
+    if most != calls:
+        return None
+    return sum(e.self_device_time_total for e in hits) / calls / 1e3
+
+
+def event_ms_per_launch(torch, fn, calls: int = 5) -> float:
+    """Median over ``calls`` single calls of ``fn`` of the CUDA-event time
+    between an event recorded just before it and one just after, each call
+    waited for: for a kernel of a millisecond or more, one launch's device
+    time (torch.profiler lost some sessions' records on the H100 of PERF.md)."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        samples.append(start.elapsed_time(stop))
+    return statistics.median(samples)
 
 
 def smi(query: str) -> str:
@@ -407,6 +512,9 @@ LADDER_MAIN = 2  # the leading entries that are epoch shapes, each timed
 
 
 def phase_kernel_ladder(ctx):
+    """The bitwise kernel against the plain stepwise ladder and the native
+    oracle at ``LADDER_ROWS``; no path runs it, the windowed kernel being
+    the faster (``ladder_crossover``)."""
     import torch
 
     from hbbft_tpu_torch.crypto import bls12_381 as c
@@ -489,15 +597,17 @@ def phase_kernel_ladder(ctx):
                     raise AssertionError(
                         f"{group} ladder kernel differs from the native oracle, row {r} of {rows}")
             ms = time_ms(torch, lambda: G.scalar_mul_lazy(ops, pt, bits, base_inf), 5, rounds=3)
+            recorded = {}
             dev_ms = device_ms_per_launch(
                 torch, lambda: G.scalar_mul_lazy(ops, pt, bits, base_inf), "ladder_lazy_kernel",
-                calls=5)
-            width = out[0].shape[1]
-            n_bytes = 2 * 3 * 30 * width * 4 + rows * LADDER_BITS * 4 + 2 * rows
+                calls=5, detail=recorded)
+            ev_ms = event_ms_per_launch(torch, lambda: G.scalar_mul_lazy(ops, pt, bits, base_inf))
+            n_bytes = ladder_bytes(rows, out[0].shape[1], LADDER_BITS)
             n_ops = ladder_ops(group, rows, LADDER_BITS)
             bms, by = bound_ms(ctx, n_bytes, n_ops)
             shapes.append({"rows": rows, "bits": LADDER_BITS, "ms": ms,
-                           "device_ms_per_launch": dev_ms, "plain_ms": plain_ms[i],
+                           "device_ms_per_launch": dev_ms, "profiler": recorded,
+                           "event_ms_per_launch": ev_ms, "plain_ms": plain_ms[i],
                            "bound_ms": bms, "bound_by": by, "bytes": n_bytes, "ops": n_ops,
                            "oracle_rows": checked})
         groups[group] = {**shapes[0], "n1024": shapes[1],
@@ -512,6 +622,8 @@ def phase_kernel_ladder(ctx):
             "bound_ms": both[0], "bound_by": both[1],
             "device_ms_per_launch": {k: shape_of(g)["device_ms_per_launch"]
                                      for k, g in groups.items()},
+            "event_ms_per_launch": {k: shape_of(g)["event_ms_per_launch"]
+                                    for k, g in groups.items()},
             "ms_by_group": {k: shape_of(g)["ms"] for k, g in groups.items()},
             "rows": {k: shape_of(g)["rows"] for k, g in groups.items()},
         }
@@ -560,6 +672,7 @@ def phase_epoch(ctx):
     if batch != contribs:
         raise AssertionError("warm epoch did not return every contribution")
 
+    expected = epoch_launches(N_NODES)
     timed = []
     for k in range(TIMED_EPOCHS):
         torch.cuda.synchronize()
@@ -573,8 +686,7 @@ def phase_epoch(ctx):
             raise AssertionError("timed epoch did not return every contribution")
         if not np.asarray(detail["accepted"]).all():
             raise AssertionError("a node did not accept every instance")
-        if launches != EPOCH_LAUNCHES:
-            raise AssertionError(f"epoch launches {launches}, expected {EPOCH_LAUNCHES}")
+        check_launches(launches, expected, "epoch")
         timed.append({"epoch_s": epoch_s, "phase_s": detail["phase_s"],
                       "aba_epochs": detail["epochs"]})
     ctx["launches"] = launches
@@ -585,7 +697,8 @@ def phase_epoch(ctx):
         "epoch_s_median": statistics.median(t["epoch_s"] for t in timed),
         "timed": timed,
         "warm_epoch_s": warm_s, "warm_encrypt_s": warm_encrypt_s,
-        "launches_per_epoch": launches, "batch_ok": True,
+        "launches_per_epoch": launches, "ladder_launches_per_epoch":
+            sum(launches[k] for k in LADDER_KERNELS), "batch_ok": True,
         "ciphertexts_match_native": True,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     }
@@ -593,7 +706,8 @@ def phase_epoch(ctx):
 
 # kernels by kind, as substrings of the names torch.profiler records; "gemm"
 # is the float32 matrix product (the GF(2^k) bit-plane contraction)
-KERNEL_KINDS = {"ladder_lazy": "ladder_lazy_kernel", "sha3_256": "sha3_256_kernel",
+KERNEL_KINDS = {"ladder_lazy": "ladder_lazy_kernel", "ladder_window": "ladder_window_kernel",
+                "sha3_256": "sha3_256_kernel",
                 "fp_mul_lazy": "fp_mul_lazy_kernel", "gemm": "gemm"}
 
 
@@ -630,7 +744,8 @@ def _busy_share(torch, fn, wall=None):
     busy = sum(e.self_device_time_total for e in kernels) / 1e6 if kernels else None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
     ours = [e for e in kernels if e not in top and any(
-        k in e.key for k in ("ladder_lazy_kernel", "fp_mul_lazy_kernel", "sha3_256_kernel"))]
+        k in e.key for k in ("ladder_lazy_kernel", "ladder_window_kernel", "fp_mul_lazy_kernel",
+                             "sha3_256_kernel"))]
     return {
         "wall_s": wall, "device_busy_s": busy,
         "idle_share": None if busy is None else 1 - busy / wall,
@@ -868,8 +983,7 @@ def phase_epoch1024(ctx):
             raise AssertionError("N = 1024: timed epoch did not return every contribution")
         if not np.asarray(detail["accepted"]).all():
             raise AssertionError("N = 1024: a node did not accept every instance")
-        if launches != expected:
-            raise AssertionError(f"N = 1024 epoch launches {launches}, expected {expected}")
+        check_launches(launches, expected, "N = 1024 epoch")
         timed.append({"epoch_s": epoch_s, "phase_s": detail["phase_s"],
                       "aba_epochs": detail["epochs"]})
     ctx["launches_n1024"] = launches
@@ -888,16 +1002,401 @@ def phase_epoch1024(ctx):
     }
 
 
+# the windowed kernel's cases: (rows, timed) — the N = 64 epoch's and
+# coin256's shapes, a ragged count, the N = 1024 epoch's encrypt shapes,
+# and dkg256's forced device route (its 7 396 GLV-split muls padded to
+# 8 192, doubled by the split: 16 384 rows)
+WINDOW_CASES = {"g1": ((256, True), (37, False), (4 * N_LARGE, True), (16384, True)),
+                "g2": ((128, True), (256, True), (37, False), (2 * N_LARGE, True))}
+DKG_T = 85
+COIN_N, COIN_F = 256, 85
+
+
+def _window_rows(group: str, rows: int, rng, distinct: int = 2048):
+    """``_ladder_rows``' edge rows (a zero scalar, all-ones bits, base_inf
+    padding) with at most ``distinct`` distinct points, repeated beyond,
+    and a fresh scalar on every row."""
+    pts, scalars = _ladder_rows(group, min(rows, distinct), rng)
+    if rows > distinct:
+        finite = [p for p in pts if p is not None]
+        pts = pts[:2] + [finite[i % len(finite)] for i in range(rows - distinct)] + pts[2:]
+        scalars = scalars + [rng.getrandbits(128) for _ in range(rows - distinct)]
+    return pts, scalars
+
+
+def phase_kernel_ladder_window(ctx):
+    """The windowed kernel against its plain version on the card, digit-
+    and inf-exact, G1 and G2, at each case of ``WINDOW_CASES`` (one plain
+    call a case), three rows of each against the native oracle; the timed
+    cases by CUDA events and the profiler, against their bound."""
+    import torch
+
+    from hbbft_tpu_torch.crypto import bls12_381 as c
+    from hbbft_tpu_torch.native import get_oracle
+    from hbbft_tpu_torch.ops import fp381 as F
+    from hbbft_tpu_torch.ops import gcurve as G
+
+    dev = torch.device("cuda")
+    nat = get_oracle()
+    rng = random.Random(6)
+    out_groups = {}
+    max_err = 0
+    for group, cases in WINDOW_CASES.items():
+        if group == "g1":
+            ops, to_dev, from_dev = G.LAZY_FP_OPS, G.g1_to_device, G.g1_from_device_batch
+            to_bytes, oracle_mul = c.g1_to_bytes, nat.bls_g1_mul
+        else:
+            ops, to_dev, from_dev = G.LAZY_FP2_OPS, G.g2_to_device, G.g2_from_device_batch
+            to_bytes, oracle_mul = c.g2_to_bytes, nat.bls_g2_mul
+        shapes = {}
+        for rows, timed in cases:
+            pts, scalars = _window_rows(group, rows, rng)
+            pt = to_dev(pts, dev)
+            bits = torch.from_numpy(F.bits_batch(scalars, LADDER_BITS)).to(dev)
+            base_inf = torch.tensor([p is None for p in pts], device=dev)
+            out, inf = G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref, ref_inf = G.scalar_mul_lazy_window_plain(ops, pt, bits, base_inf)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(out, ref))
+            max_err = max(max_err, err)
+            if err or not torch.equal(inf, ref_inf):
+                raise AssertionError(f"{group} window kernel differs from its plain version "
+                                     f"at R={rows}")
+            inf_h = inf.cpu().tolist()
+            if inf_h != [s == 0 or p is None for p, s in zip(pts, scalars)]:
+                raise AssertionError(f"{group} window kernel: wrong infinity rows at R={rows}")
+            host = from_dev(out)
+            for r in (0, 1, 2):
+                got = to_bytes(None if inf_h[r] else host[r])
+                want = (to_bytes(None) if pts[r] is None
+                        else oracle_mul(to_bytes(pts[r]), scalars[r]))
+                if got != want:
+                    raise AssertionError(f"{group} window kernel differs from the native "
+                                         f"oracle, row {r} of {rows}")
+            shape = {"rows": rows, "bits": LADDER_BITS, "plain_ms": plain_ms,
+                     "inf_rows": sum(inf_h)}
+            if timed:
+                def run():
+                    return G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
+
+                recorded = {}
+                dev_ms = device_ms_per_launch(torch, run, "ladder_window_kernel", calls=5,
+                                              detail=recorded)
+                ev_ms = event_ms_per_launch(torch, run)
+                n_bytes = ladder_bytes(rows, out[0].shape[1], LADDER_BITS)
+                n_ops = ladder_window_ops(group, rows, LADDER_BITS)
+                bms, by = bound_ms(ctx, n_bytes, n_ops)
+                shape.update({
+                    "ms": time_ms(torch, run, 3, rounds=3), "device_ms_per_launch": dev_ms,
+                    "profiler": recorded, "event_ms_per_launch": ev_ms,
+                    "bound_ms": bms, "bound_by": by, "share_of_bound": bms / ev_ms,
+                    "bytes": n_bytes, "ops": n_ops})
+            shapes[rows] = shape
+        out_groups[group] = shapes
+    ctx["window"] = {"max_abs_err": max_err, **out_groups}
+    return {"max_abs_err": max_err, "tolerance": 0, "digit_exact": True, "inf_exact": True,
+            "by_group": {g: {str(r): v for r, v in d.items()} for g, d in out_groups.items()}}
+
+
+CROSSOVER_ROWS = (256, 512, 1024, 2048, 4096, 16384, 65536)
+
+
+def phase_ladder_crossover(ctx):
+    """Both ladder kernels at every row count of ``CROSSOVER_ROWS``, G1 and
+    G2, 132 bits: ms of one launch by CUDA events (``event_ms_per_launch``),
+    and the largest row count up to which the windowed kernel is the
+    faster.  It fails below the largest count: every dispatch of
+    ``crypto/batch.py`` runs the windowed kernel."""
+    import torch
+
+    from hbbft_tpu_torch.ops import fp381 as F
+    from hbbft_tpu_torch.ops import gcurve as G
+
+    dev = torch.device("cuda")
+    rng = random.Random(7)
+    table = {}
+    for group in ("g1", "g2"):
+        ops, to_dev = ((G.LAZY_FP_OPS, G.g1_to_device) if group == "g1"
+                       else (G.LAZY_FP2_OPS, G.g2_to_device))
+        pool, _ = _ladder_rows(group, 256, rng)
+        pool = [p for p in pool if p is not None]
+        rows_out = []
+        for rows in CROSSOVER_ROWS:
+            pts = [pool[i % len(pool)] for i in range(rows)]
+            pt = to_dev(pts, dev)
+            bits = torch.from_numpy(F.bits_batch([rng.getrandbits(128) for _ in pts],
+                                                 LADDER_BITS)).to(dev)
+            base_inf = torch.zeros(rows, dtype=torch.bool, device=dev)
+            row = {"rows": rows}
+            for name, fn in (("window", G.scalar_mul_lazy_window), ("bitwise", G.scalar_mul_lazy)):
+                row[f"{name}_ms"] = event_ms_per_launch(
+                    torch, lambda: fn(ops, pt, bits, base_inf), calls=3)
+            row["ratio"] = row["window_ms"] / row["bitwise_ms"]
+            rows_out.append(row)
+        table[group] = rows_out
+    faster = {g: [r["rows"] for r in t if r["ratio"] < 1] for g, t in table.items()}
+    # the largest count up to which the window kernel wins in both groups
+    upto = 0
+    for rows in CROSSOVER_ROWS:
+        if all(rows in f for f in faster.values()):
+            upto = rows
+        else:
+            break
+    if upto < CROSSOVER_ROWS[-1]:
+        raise AssertionError(f"the bitwise ladder is the faster above {upto} rows: "
+                             f"{table}")
+    return {"by_group": table, "window_faster_up_to_rows": upto, "smi": ctx["smi"]}
+
+
+def _ladder_launch_counts():
+    from hbbft_tpu_torch import _build
+
+    return {k: _build.LAUNCHES[k] for k in LADDER_KERNELS}
+
+
+def phase_coin256(ctx):
+    """BASELINE config 3, the common coin at N = 256, f = 85:
+    ``batch_verify_sig_shares`` over 256 (PublicKeyShare, SignatureShare)
+    pairs as bench.py's ``_coin256_setup`` makes them; False with one share
+    signed over another message; the MSMs against the host's sums; and
+    ``batch_verify_dec_shares`` over 256 decryption shares of a ciphertext,
+    valid and with one tampered."""
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.crypto import bls12_381 as c
+    from hbbft_tpu_torch.crypto import tc
+
+    t0 = time.perf_counter()
+    rng = random.Random(99)
+    sks = tc.SecretKeySet.random(COIN_F, rng)
+    pks = sks.public_keys()
+    msg = b"coin-epoch-42"
+    pairs = [(pks.public_key_share(i), sks.secret_key_share(i).sign(msg))
+             for i in range(COIN_N)]
+    setup_s = time.perf_counter() - t0
+
+    if B.batch_verify_sig_shares(pairs, msg, rng) is not True:  # warm
+        raise AssertionError("coin256: the valid shares did not verify")
+    times, launches = [], None
+    for _ in range(3):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        ok = B.batch_verify_sig_shares(pairs, msg, rng)
+        times.append(time.perf_counter() - t0)
+        launches = _ladder_launch_counts()
+        if ok is not True:
+            raise AssertionError("coin256: the valid shares did not verify")
+    want_launches = ladder_launches(2)
+    if launches != want_launches:
+        raise AssertionError(f"coin256 launches {launches}, expected {want_launches}")
+
+    # the verify's split, step by step as batch_verify_sig_shares runs it
+    cc = B.cache_for("cuda")
+    rs = [rng.getrandbits(128) | 1 for _ in pairs]
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    h_sig = cc._msm_dispatch("g2", [sg.point for _, sg in pairs], rs)
+    h_pk = cc._msm_dispatch("g1", [pk.point for pk, _ in pairs], rs)
+    s1 = time.perf_counter()
+    torch.cuda.synchronize()
+    s2 = time.perf_counter()
+    sig_comb = cc._msm_collect(h_sig)
+    pk_comb = cc._msm_collect(h_pk)
+    s3 = time.perf_counter()
+    verdict = c.pairing_check([(c.g1_neg(c.G1_GEN), sig_comb), (pk_comb, c.hash_g2(msg))])
+    s4 = time.perf_counter()
+    if not verdict:
+        raise AssertionError("coin256: the split verify failed")
+    # the MSMs against the host's Σ rᵢPᵢ for the same randomizers
+    want_sig, want_pk = None, None
+    for (pk, sg), r in zip(pairs, rs):
+        want_sig = c.g2_add(want_sig, c.g2_mul(sg.point, r))
+        want_pk = c.g1_add(want_pk, c.g1_mul(pk.point, r))
+    if not (c.g2_eq(sig_comb, want_sig) and c.g1_eq(pk_comb, want_pk)):
+        raise AssertionError("coin256: the MSMs differ from the host's sums")
+
+    forged, k = list(pairs), COIN_N // 15  # share 17 of 256
+    forged[k] = (pairs[k][0], sks.secret_key_share(k).sign(b"coin-epoch-43"))
+    if B.batch_verify_sig_shares(forged, msg, rng) is not False:
+        raise AssertionError("coin256: a share over another message verified")
+
+    # 256 decryption shares of one ciphertext
+    ct = pks.public_key().encrypt(b"coin256 decryption-share payload", rng)
+    dpairs = [(pks.public_key_share(i), sks.secret_key_share(i).decrypt_share(ct, check=False))
+              for i in range(COIN_N)]
+    t0 = time.perf_counter()
+    dec_ok = B.batch_verify_dec_shares(dpairs, ct, rng)
+    dec_s = time.perf_counter() - t0
+    bad, k = list(dpairs), COIN_N * 25 // 32  # share 200 of 256
+    bad[k] = (dpairs[k][0], tc.DecryptionShare(c.g1_add(dpairs[k][1].point, c.G1_GEN)))
+    if dec_ok is not True or B.batch_verify_dec_shares(bad, ct, rng) is not False:
+        raise AssertionError("coin256: the decryption-share batch verify is wrong")
+
+    # the host's per-share verification, sampled (bench.py's denominator)
+    t0 = time.perf_counter()
+    for pk, sg in pairs[:4]:
+        if not pk.verify(sg, msg):
+            raise AssertionError("coin256: a host per-share check failed")
+    host_s = (time.perf_counter() - t0) / 4 * COIN_N
+    median = statistics.median(times)
+    ctx["coin256_launches"] = launches
+    return {
+        "n": COIN_N, "f": COIN_F, "setup_s": setup_s, "verify_s": times,
+        "verify_s_median": median, "valid": True, "forged_share_rejected": True,
+        "msm_equal_host": True, "ladder_launches_per_verify": launches,
+        "split_s": {"dispatch_host": s1 - s0, "ladders_wait": s2 - s1,
+                    "fetch_and_host_fold": s3 - s2, "hash_and_pairing_check": s4 - s3},
+        "ladders_device_ms": {g: ctx["window"][g][COIN_N]["event_ms_per_launch"]
+                              for g in ("g1", "g2")},
+        "dec_shares_valid": True, "dec_share_tamper_rejected": True, "dec_verify_s": dec_s,
+        "host_per_share_s_x256": host_s, "speedup_vs_host": host_s / median,
+    }
+
+
+def _timed(fn, reps: int = 3):
+    """(result, median seconds of ``reps`` calls after one warm call)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return out, statistics.median(times)
+
+
+def phase_dkg256(ctx):
+    """The DKG at N = 256 (t = 85, bench.py's ``_dkg256_commitment``):
+    ``commitment_row(com, 3)`` on the production route and on the forced
+    device route (``DEVICE_DKG_MIN_BATCH = 1``), both against
+    ``com.row(3)``; ``commitment_eval`` and ``bivar_commitment`` on the
+    forced device route against their host values; then the crossovers of
+    the DKG and fold thresholds (host against forced device)."""
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.crypto import bls12_381 as c
+    from hbbft_tpu_torch.crypto import tc
+
+    muls = (DKG_T + 1) ** 2
+    poly = tc.BivarPoly.random(DKG_T, random.Random(21))
+    t0 = time.perf_counter()
+    com = poly.commitment()
+    host_commit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    row_host = com.row(3)
+    host_row_s = time.perf_counter() - t0
+
+    row_best, best_s = _timed(lambda: B.commitment_row(com, 3))
+    best_route = "device" if B._device_worthwhile(muls) else "host-horner"
+    saved = B.DEVICE_DKG_MIN_BATCH
+    B.DEVICE_DKG_MIN_BATCH = 1
+    try:
+        _build.reset_launches()
+        row_dev = B.commitment_row(com, 3)
+        torch.cuda.synchronize()
+        launches = _ladder_launch_counts()
+        row_dev, dev_row_s = _timed(lambda: B.commitment_row(com, 3))
+        t0 = time.perf_counter()
+        ev_dev = B.commitment_eval(com, 3, 6)
+        dev_eval_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        com_dev = B.bivar_commitment(poly)
+        dev_commit_s = time.perf_counter() - t0
+        # the DKG crossover: smaller degrees, host against forced device
+        sweep = []
+        for t in (2, 4, 8, 24, 48):
+            p = tc.BivarPoly.random(t, random.Random(t))
+            t0 = time.perf_counter()
+            cm = p.commitment()
+            h_commit = time.perf_counter() - t0
+            _, d_commit = _timed(lambda: B.bivar_commitment(p), reps=1)
+            t0 = time.perf_counter()
+            cm.row(3)
+            h_row = time.perf_counter() - t0
+            _, d_row = _timed(lambda: B.commitment_row(cm, 3), reps=1)
+            sweep.append({"t": t, "muls": (t + 1) ** 2, "commit_host_s": h_commit,
+                          "commit_device_s": d_commit, "row_host_s": h_row,
+                          "row_device_s": d_row})
+    finally:
+        B.DEVICE_DKG_MIN_BATCH = saved
+    t0 = time.perf_counter()
+    ev_host = com.evaluate(3, 6)
+    host_eval_s = time.perf_counter() - t0
+    want_launches = ladder_launches(1)
+    if launches != want_launches:
+        raise AssertionError(f"dkg256 forced-device launches {launches}, expected {want_launches}")
+    if not (row_best == row_host and row_dev == row_host):
+        raise AssertionError("dkg256: commitment_row differs from com.row(3)")
+    if not c.g1_eq(ev_dev, ev_host):
+        raise AssertionError("dkg256: commitment_eval differs from com.evaluate(3, 6)")
+    if com_dev.to_bytes() != com.to_bytes():
+        raise AssertionError("dkg256: bivar_commitment differs from poly.commitment()")
+    ctx["dkg256_launches"] = launches
+    sweep.append({"t": DKG_T, "muls": muls, "commit_host_s": host_commit_s,
+                  "commit_device_s": dev_commit_s, "row_host_s": host_row_s,
+                  "row_device_s": dev_row_s})
+
+    # the fold crossover: rlc_fold_g1's host loop against the device MSM
+    pts = [p for row in com.points for p in row]
+    fold = []
+    for n in [k for k in (8, 16, 32, 64, 256, 1024, 4096) if k < len(pts)] + [len(pts)]:
+        rs = B._fs_scalars(b"fold-crossover", n)
+        t0 = time.perf_counter()
+        want = None
+        for p, r in zip(pts[:n], rs):
+            want = c.g1_add(want, c.g1_mul(p, r))
+        h = time.perf_counter() - t0
+        got, d = _timed(lambda: B.cache_for("cuda").msm_g1(pts[:n], rs), reps=1)
+        if not c.g1_eq(got, want):
+            raise AssertionError(f"fold crossover: the device MSM differs at n={n}")
+        fold.append({"n": n, "host_s": h, "device_s": d})
+    return {
+        "t": DKG_T, "muls": muls, "best_route": best_route, "t_best_s": best_s,
+        "t_device_s": dev_row_s, "t_host_s": host_row_s,
+        "row_equal_on_both_routes": True, "forced_device_launches": launches,
+        "eval_device_s": dev_eval_s, "eval_host_s": host_eval_s, "eval_equal": True,
+        "commit_device_s": dev_commit_s, "commit_host_s": host_commit_s, "commit_equal": True,
+        "dkg_crossover": sweep, "fold_crossover": fold,
+        "DEVICE_DKG_MIN_BATCH": B.DEVICE_DKG_MIN_BATCH,
+        "DEVICE_FOLD_MIN_BATCH": B.DEVICE_FOLD_MIN_BATCH,
+    }
+
+
+
 def phase_kernels(ctx):
     fp_main = ctx["fp"]["rows"][256]
     sha = ctx["sha3"]["shapes"][ctx["sha3"]["main"]]
     sha_l = ctx["sha3"]["shapes"][ctx["sha3"]["main_n1024"]]
     lad, lad_l = ctx["ladder"], ctx["ladder"]["n1024"]
     launches, launches_l = ctx["launches"], ctx["launches_n1024"]
+    win = ctx["window"]
+
+    def window_sum(shapes):
+        """The windowed kernel's timed ``(group, rows)`` shapes, summed."""
+        got = [win[g][r] for g, r in shapes]
+        bms, by = bound_ms(ctx, sum(x["bytes"] for x in got), ops_sum([x["ops"] for x in got]))
+        return {"ms": sum(x["ms"] for x in got), "plain_ms": sum(x["plain_ms"] for x in got),
+                "bound_ms": bms, "bound_by": by,
+                "device_ms_per_launch": {f"{g}_{r}": x["device_ms_per_launch"]
+                                         for (g, r), x in zip(shapes, got)},
+                "event_ms_per_launch": {f"{g}_{r}": x["event_ms_per_launch"]
+                                        for (g, r), x in zip(shapes, got)},
+                "share_of_bound": bms / sum(x["event_ms_per_launch"] for x in got),
+                "shape": " + ".join(f"{g.upper()} {r} rows" for g, r in shapes)
+                         + f", {LADDER_BITS} bits"}
+
+    epoch_w = window_sum([("g1", 4 * N_NODES), ("g2", 2 * N_NODES)])
 
     def times(d):
-        return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "device_ms_per_launch")}
+        return {k: d.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                      "device_ms_per_launch", "event_ms_per_launch")}
 
     kernels = [
         {
@@ -939,12 +1438,29 @@ def phase_kernels(ctx):
             "library_ms": None,
             "ms_by_group": lad["ms_by_group"],
             "device_ms_per_launch": lad["device_ms_per_launch"],
-            "shape": "the epoch's two launches summed: G1 {g1} rows + G2 {g2} rows, "
-                     "{bits} bits".format(bits=LADDER_BITS, **lad["rows"]),
+            "event_ms_per_launch": lad["event_ms_per_launch"],
+            "shape": "the N = 64 epoch's encrypt shapes summed (no path runs this kernel): "
+                     "G1 {g1} rows + G2 {g2} rows, {bits} bits".format(bits=LADDER_BITS,
+                                                                       **lad["rows"]),
             "n1024": {"launches": launches_l["ladder_lazy"], **times(lad_l),
                       "ms_by_group": lad_l["ms_by_group"],
                       "shape": "G1 {g1} rows + G2 {g2} rows, {bits} bits, summed".format(
                           bits=LADDER_BITS, **lad_l["rows"])},
+        },
+        {
+            "name": "ladder_window", "route": "cuda",
+            "source": "hbbft_tpu_torch/csrc/ladder_window.cu",
+            "replaces": "hbbft_tpu/ops/gcurve.py:288",
+            "launches": launches["ladder_window"],
+            "max_abs_err": win["max_abs_err"],
+            "library_ms": None,
+            **epoch_w,
+            "coin256": {"launches": ctx["coin256_launches"]["ladder_window"],
+                        **window_sum([("g1", COIN_N), ("g2", COIN_N)])},
+            "dkg256": {"launches": ctx["dkg256_launches"]["ladder_window"],
+                       **window_sum([("g1", 2 * 8192)])},
+            "n1024": {"launches": launches_l["ladder_window"],
+                      **window_sum([("g1", 4 * N_LARGE), ("g2", 2 * N_LARGE)])},
         },
     ]
     return {"kernels": kernels}
@@ -985,8 +1501,11 @@ def main() -> int:
     ctx["leaf_bytes_large"] = _frame_shard_len([bytes(CIPHERTEXT_BYTES)], N_LARGE - 2 * F_LARGE)
     phases = [("build", phase_build), ("kernel_fp_mul_lazy", phase_kernel_fp),
               ("kernel_sha3", phase_kernel_sha3), ("kernel_ladder", phase_kernel_ladder),
+              ("kernel_ladder_window", phase_kernel_ladder_window),
+              ("ladder_crossover", phase_ladder_crossover),
               ("epoch", phase_epoch), ("profile", phase_profile),
-              ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024)]
+              ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
+              ("coin256", phase_coin256), ("dkg256", phase_dkg256)]
     ok = True
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -2,9 +2,11 @@
 
 The JAX package ``hbbft_tpu`` is the reference; this package computes the
 same epoch (TPKE encrypt → batched RBC → batched ABA → threshold decrypt)
-with plain PyTorch tensors and two CUDA kernels written for Hopper
-(``csrc/fp_mul_lazy.cu``, ``csrc/keccak.cu``).  Module names mirror the
-reference's (``ops/``, ``parallel/``, ``crypto/``).
+with plain PyTorch tensors and CUDA kernels written for Hopper
+(``csrc/``: the bitwise and windowed whole-ladder kernels, the lazy field
+multiply, SHA3), and the threshold-crypto batch calls around it
+(``crypto/batch.py``).  Module names mirror the reference's (``ops/``,
+``parallel/``, ``crypto/``).
 
 Entry points take ``device=`` and default to ``"cuda"``: without a card
 they raise rather than run on the CPU.  Pass ``device="cpu"`` to run the

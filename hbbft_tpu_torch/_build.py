@@ -42,6 +42,10 @@ KERNELS = {
         "ladder_lazy.cu", "hb_ladder_lazy",
         [_VP] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
     ),
+    "ladder_window": (
+        "ladder_window.cu", "hb_ladder_window",
+        [_VP] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
+    ),
 }
 
 NVCC_FLAGS = [

@@ -1,19 +1,36 @@
-"""Batched scalar-mul ladders on the device and the batched TPKE calls.
+"""Batched scalar-mul ladders on the device and the threshold-crypto batch
+calls above them.
 
-Counterpart of the single-device parts of ``hbbft_tpu/crypto/batch.py``
-that the HoneyBadger epoch runs: the GLV/GLS-split G1/G2 scalar-mul
-ladders (``_MsmCache._mul_batch_dispatch``/``_mul_batch_collect``,
-``g1_mul_batch``/``g2_mul_batch``), the split device TPKE encrypt, and the
-master-scalar threshold decrypt.  The ladders run
-:func:`hbbft_tpu_torch.ops.gcurve.scalar_mul_lazy` over the one lazy field
-(on the card: one whole-ladder kernel launch per dispatch) at every batch
-size (the reference's TPU-measured choice between two field
-representations does not change residues, so it is not carried over).
+Counterpart of the single-device parts of ``hbbft_tpu/crypto/batch.py``:
+
+- the ladder launcher ``_MsmCache``: the randomized MSM
+  (``_msm_dispatch``/``_msm_collect``, ``msm_g1``/``msm_g2``: one 132-bit
+  ladder over 128-bit randomizers, folded on the host) and the GLV/GLS-split
+  full-range scalar muls (``_mul_batch_dispatch``/``_mul_batch_collect``,
+  ``g1_mul_batch``/``g2_mul_batch``).  Every dispatch runs the lazy field
+  (:mod:`hbbft_tpu_torch.ops.gcurve`; on the card one launch of the
+  4-bit windowed ladder kernel; the reference's TPU-measured choice
+  between two field representations does not change residues, so it is
+  not carried over);
+- the TPKE calls of the HoneyBadger epoch (split device encrypt,
+  master-scalar threshold decrypt);
+- the randomized-linear-combination share checks (SURVEY §3.5): N
+  pairing checks become two MSMs and ONE two-pairing check,
+
+      e(g1, Σ rᵢσᵢ) = e(Σ rᵢ pkᵢ, h)      (signature shares, the coin)
+      e(Σ rᵢ dᵢ, h) = e(Σ rᵢ pkᵢ, W)      (decryption shares)
+
+  for random 128-bit rᵢ (soundness 2⁻¹²⁸); the MSMs run on the device, the
+  pairings on the host oracle; on False the caller verifies per share;
+- the DKG's commitment evaluations and the cross-epoch batched share
+  generation and verification, device ladder above a batch threshold.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import hashlib
+import random
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,8 +38,9 @@ from hbbft_tpu_torch import resolve_device
 from hbbft_tpu_torch.crypto import bls12_381 as c
 from hbbft_tpu_torch.ops import gcurve as G
 
-# ladder width: the 129 bits of a GLV/GLS half-scalar < 2^128, rounded up
-# to the reference's 4-bit window so both ladders see the same bit rows
+_RAND_BITS = 128
+# ladder width: the 129 bits of an odd 128-bit randomizer or of a GLV/GLS
+# half-scalar < 2^128, rounded up to the 4-bit window
 _WINDOW_BITS = 132
 
 # The thresholds below are TPU-derived, not yet measured on the card: they
@@ -36,7 +54,9 @@ DEVICE_ENCRYPT_CHUNK = 1024
 
 
 class _MsmCache:
-    """Batched endomorphism-split scalar-mul ladders on one device."""
+    """Batched lazy-field ladders on one device: the randomized MSM and the
+    endomorphism-split scalar muls, each a dispatch/collect pair so that
+    independent ladders overlap on the card."""
 
     def __init__(self, device):
         self.device = resolve_device(device)
@@ -47,6 +67,65 @@ class _MsmCache:
         while size < n:
             size *= 2
         return size
+
+    def _ladder(self, group: str, points, scalars):
+        """Start ONE ladder of 132 bits over ``points`` (host Jacobian, None
+        = infinity) and scalars < 2^128: the windowed kernel (its plain
+        version on the CPU).  On NVIDIA H100 80GB HBM3, 700.00 W it took
+        0.58–0.68 of the bitwise kernel's time at every row count from 256
+        to 65 536, G1 and G2 (chip_smoke.py's ladder_crossover, PERF.md).
+        Returns the device result (coordinates, inf)."""
+        dev = self.device
+        if group == "g1":
+            pt, ops = G.g1_to_device(points, dev), G.LAZY_FP_OPS
+        else:
+            pt, ops = G.g2_to_device(points, dev), G.LAZY_FP2_OPS
+        bits = torch.from_numpy(G.scalars_to_bits(scalars, nbits=_WINDOW_BITS)).to(dev)
+        base_inf = torch.tensor([p is None for p in points], device=dev)
+        return G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
+
+    @staticmethod
+    def _fetch(group: str, out, inf):
+        """ONE device→host copy of a ladder's coordinates and inf flags →
+        (host Jacobian points, canonicalized; inf flags).  The flag is
+        authoritative: a lazy ∞ row's coordinates are garbage."""
+        packed = torch.cat([co.reshape(-1) for co in out] + [inf.to(torch.int32)])
+        packed = packed.cpu().numpy()
+        n = out[0].numel()
+        coords = tuple(packed[k * n:(k + 1) * n].reshape(out[0].shape) for k in range(3))
+        from_dev = G.g1_from_device_batch if group == "g1" else G.g2_from_device_batch
+        return from_dev(coords), packed[3 * n:].astype(bool)
+
+    def _msm_dispatch(self, group: str, points, scalars):
+        """Start the ladder of Σ scalars[i]·points[i] (scalars < 2^128, the
+        RLC randomizers), padded to a power of two; returns a handle for
+        :meth:`_msm_collect`."""
+        size = self._pad(len(points))
+        pts = list(points) + [None] * (size - len(points))
+        sc = list(scalars) + [0] * (size - len(scalars))
+        return (group, len(points), self._ladder(group, pts, sc))
+
+    def _msm_collect(self, handle):
+        """Finish a :meth:`_msm_dispatch` handle: the host point (None =
+        infinity), folded on the host from one copy of the ladder rows."""
+        group, n_pts, (out, inf) = handle
+        host_pts, inf_h = self._fetch(group, out, inf)
+        host_add = c.g1_add if group == "g1" else c.g2_add
+        acc = None
+        for i in range(n_pts):
+            if not inf_h[i]:
+                acc = host_add(acc, host_pts[i])
+        return acc
+
+    def _msm(self, group: str, points, scalars):
+        return self._msm_collect(self._msm_dispatch(group, points, scalars))
+
+    def msm_g1(self, points, scalars):
+        """points: host Jacobian G1 points; scalars: ints < 2^128. → host point."""
+        return self._msm("g1", points, scalars)
+
+    def msm_g2(self, points, scalars):
+        return self._msm("g2", points, scalars)
 
     def _mul_batch_dispatch(self, group: str, points, scalars, endo, lam):
         """Start ONE ladder for full-range (mod r) scalars; returns a handle
@@ -64,29 +143,14 @@ class _MsmCache:
         a = [s % lam for s in sc]
         b = [s // lam for s in sc]
         phi = [endo(p) for p in pts]
-        dev = self.device
-        if group == "g1":
-            pt = G.g1_to_device(pts + phi, dev)
-            ops = G.LAZY_FP_OPS
-        else:
-            pt = G.g2_to_device(pts + phi, dev)
-            ops = G.LAZY_FP2_OPS
-        bits = torch.from_numpy(G.scalars_to_bits(a + b, nbits=_WINDOW_BITS)).to(dev)
-        base_inf = torch.tensor([p is None for p in pts] * 2, device=dev)
-        out, inf = G.scalar_mul_lazy(ops, pt, bits, base_inf)
-        return (group, B, size, out, inf)
+        return (group, B, size, self._ladder(group, pts + phi, a + b))
 
     def _mul_batch_collect(self, handle):
         """Finish a :meth:`_mul_batch_dispatch` handle: host Jacobian points
         (None = infinity), index-aligned with the dispatched points."""
-        group, B, size, out, inf = handle
-        inf_h = inf.cpu().numpy()
-        if group == "g1":
-            host_pts = G.g1_from_device_batch(out)  # a·P rows, then b·endo(P)
-            host_add = c.g1_add
-        else:
-            host_pts = G.g2_from_device_batch(out)
-            host_add = c.g2_add
+        group, B, size, (out, inf) = handle
+        host_pts, inf_h = self._fetch(group, out, inf)  # a·P rows, then b·endo(P)
+        host_add = c.g1_add if group == "g1" else c.g2_add
         res = []
         for i in range(B):
             lo = None if inf_h[i] else host_pts[i]
@@ -318,3 +382,263 @@ def batch_tpke_encrypt_device(pk_point, msgs: Sequence[bytes], rs,
     for h in w_handles:
         ws_all.extend(cache._mul_batch_collect(h))
     return [tc.Ciphertext(u, v, w) for u, v, w in zip(us_all, vs_all, ws_all)]
+
+
+# --------------------------------------------------------------------------
+# DKG commitment evaluation (SyncKeyGen hot loops)
+# --------------------------------------------------------------------------
+#
+# ``BivarCommitment.row`` / ``.evaluate`` cost (t+1)² G1 scalar-muls each,
+# per Part and per Ack.  Above a batch threshold the device ladder runs
+# them; below it the host does.  Both are exact: the choice is speed only.
+
+# The thresholds below are TPU-derived, as those above (PERF.md has the
+# card's measured crossovers).  DKG muls on the device from (t+1)² of:
+DEVICE_DKG_MIN_BATCH = 16384
+# An RLC fold on the device from this many rows:
+DEVICE_FOLD_MIN_BATCH = 8192
+
+
+def _device_worthwhile(batch_size: int, min_batch: Optional[int] = None) -> bool:
+    """Route ``batch_size`` scalar-muls to the device ladder?"""
+    if min_batch is None:
+        min_batch = DEVICE_DKG_MIN_BATCH
+    return batch_size >= min_batch
+
+
+def commitment_row(bivar_com, x: int, device="cuda"):
+    """``BivarCommitment.row(x)``, on the device ladder from
+    ``DEVICE_DKG_MIN_BATCH`` muls: row(x)[j] = Σ_i points[i][j]·x^i as one
+    batched ladder over every (i, j), folded over i on the host."""
+    from hbbft_tpu_torch.crypto.tc import Commitment, R
+
+    t1 = bivar_com.degree() + 1
+    if not _device_worthwhile(t1 * t1):
+        return bivar_com.row(x)
+    xp = [pow(x, i, R) for i in range(t1)]
+    flat_pts = [bivar_com.points[i][j] for i in range(t1) for j in range(t1)]
+    flat_sc = [xp[i] for i in range(t1) for j in range(t1)]
+    res = cache_for(device).g1_mul_batch(flat_pts, flat_sc)
+    out = []
+    for j in range(t1):
+        acc = None
+        for i in range(t1):
+            acc = c.g1_add(acc, res[i * t1 + j])
+        out.append(acc)
+    return Commitment(out)
+
+
+def commitment_eval(bivar_com, x: int, y: int, device="cuda"):
+    """``BivarCommitment.evaluate(x, y)``, on the device ladder from
+    ``DEVICE_DKG_MIN_BATCH`` muls."""
+    from hbbft_tpu_torch.crypto.tc import R
+
+    t1 = bivar_com.degree() + 1
+    if not _device_worthwhile(t1 * t1):
+        return bivar_com.evaluate(x, y)
+    xp = [pow(x, i, R) for i in range(t1)]
+    yp = [pow(y, j, R) for j in range(t1)]
+    flat_pts = [bivar_com.points[i][j] for i in range(t1) for j in range(t1)]
+    flat_sc = [xp[i] * yp[j] % R for i in range(t1) for j in range(t1)]
+    acc = None
+    for p in cache_for(device).g1_mul_batch(flat_pts, flat_sc):
+        acc = c.g1_add(acc, p)
+    return acc
+
+
+def poly_eval_range(coeffs, n: int):
+    """``[f(1), …, f(n)]`` for the Fr polynomial with ``coeffs``: ``deg+1``
+    Horner evaluations seed a forward-difference table, then every further
+    share costs ``deg`` modular additions (the DKG's share loop)."""
+    from hbbft_tpu_torch.crypto.tc import R
+
+    def horner(x: int) -> int:
+        acc = 0
+        for coef in reversed(coeffs):
+            acc = (acc * x + coef) % R
+        return acc
+
+    deg = len(coeffs) - 1
+    if n <= deg + 1:
+        return [horner(x) for x in range(1, n + 1)]
+    seed = [horner(x) for x in range(1, deg + 2)]
+    table = [list(seed)]  # forward differences; tail[k] = Δᵏf at the newest point
+    for _ in range(deg):
+        prev = table[-1]
+        table.append([(prev[i + 1] - prev[i]) % R for i in range(len(prev) - 1)])
+    tail = [row[-1] for row in table]
+    out = seed
+    for _ in range(n - (deg + 1)):
+        for k in reversed(range(deg)):
+            tail[k] = (tail[k] + tail[k + 1]) % R
+        out.append(tail[0])
+    return out
+
+
+def bivar_rows_range(bivar_poly, n: int):
+    """``[bivar_poly.row(1), …, bivar_poly.row(n)]`` by per-column finite
+    differences (:func:`poly_eval_range`): the dealer's share loop."""
+    from hbbft_tpu_torch.crypto.tc import Poly
+
+    t1 = bivar_poly.degree() + 1
+    cols = [poly_eval_range([bivar_poly.coeffs[i][j] for i in range(t1)], n)
+            for j in range(t1)]
+    return [Poly([cols[j][x] for j in range(t1)]) for x in range(n)]
+
+
+def bivar_commitment(bivar_poly, device="cuda"):
+    """``BivarPoly.commitment()``, on the device ladder from
+    ``DEVICE_DKG_MIN_BATCH`` coefficients (g1·coeff for all (t+1)²)."""
+    from hbbft_tpu_torch.crypto.tc import BivarCommitment
+
+    t1 = bivar_poly.degree() + 1
+    if not _device_worthwhile(t1 * t1):
+        return bivar_poly.commitment()
+    flat_sc = [bivar_poly.coeffs[i][j] for i in range(t1) for j in range(t1)]
+    res = cache_for(device).g1_mul_batch([c.G1_GEN] * (t1 * t1), flat_sc)
+    return BivarCommitment(bivar_poly.degree(),
+                           [[res[i * t1 + j] for j in range(t1)] for i in range(t1)])
+
+
+# --------------------------------------------------------------------------
+# Cross-epoch batched share generation / verification
+# --------------------------------------------------------------------------
+#
+# One pump iteration of the pipelined node runtime can carry the threshold
+# crypto of many (epoch, proposer) instances at once; these calls take the
+# whole batch, merge the pairing products so it pays ONE final
+# exponentiation, and derive every randomizer by Fiat–Shamir from the
+# checked material, so the verdicts are deterministic.
+
+
+def rlc_fold_g1(points, scalars, device="cuda"):
+    """``Σ rᵢ·Pᵢ`` over host Jacobian G1 points: the device MSM from
+    ``DEVICE_FOLD_MIN_BATCH`` rows, per-item host muls below.  Returns a
+    host point, None for the infinity sum."""
+    if _device_worthwhile(len(points), DEVICE_FOLD_MIN_BATCH):
+        return cache_for(device).msm_g1(points, scalars)
+    acc = None
+    for p, s in zip(points, scalars):
+        acc = c.g1_add(acc, c.g1_mul(p, s))
+    return acc
+
+
+def _fs_scalars(seed: bytes, n: int, offset: int = 0):
+    """``n`` Fiat–Shamir 128-bit coefficients (odd, nonzero) from ``seed``."""
+    return [
+        int.from_bytes(hashlib.sha3_256(seed + (offset + k).to_bytes(4, "big")).digest()[:16],
+                       "big") | 1
+        for k in range(n)
+    ]
+
+
+def batch_decrypt_share_gen(secret_scalar: int, cts, device="cuda"):
+    """One node's decryption shares ``x_i·U_p`` for many ciphertexts in one
+    call, value-identical to per-item ``decrypt_share(ct, check=False)``;
+    the device ladder from ``DEVICE_DECRYPT_MIN_BATCH`` ciphertexts."""
+    from hbbft_tpu_torch.crypto import tc
+
+    if not cts:
+        return []
+    if _device_worthwhile(len(cts), DEVICE_DECRYPT_MIN_BATCH):
+        pts = cache_for(device).g1_mul_batch([ct.u for ct in cts],
+                                             [secret_scalar] * len(cts))
+        return [tc.DecryptionShare(p) for p in pts]
+    return [tc.DecryptionShare(c.g1_mul(ct.u, secret_scalar)) for ct in cts]
+
+
+def verify_ciphertext_batch(cts) -> list:
+    """Per-ciphertext CCA verdicts in ONE merged pairing-product check:
+    ``e(g1, Σ r_j·W_j) · Π e(−r_j·U_j, H_j) == 1`` with FS randomizers; on
+    a merged failure each ciphertext is checked alone, so the list equals
+    per-item ``Ciphertext.verify()``.  Host work only."""
+    from hbbft_tpu_torch.crypto import tc
+
+    if not cts:
+        return []
+    if len(cts) == 1:
+        return [cts[0].verify()]
+    seed = hashlib.sha3_256(b"HBBFT-CT-BATCH" + b"".join(ct.to_bytes() for ct in cts)).digest()
+    rs = _fs_scalars(seed, len(cts))
+    w_acc = None
+    pairs = []
+    for ct, r in zip(cts, rs):
+        w_acc = c.g2_add(w_acc, c.g2_mul(ct.w, r))
+        pairs.append((c.g1_neg(c.g1_mul(ct.u, r)), tc._hash_ciphertext_point(ct.u, ct.v)))
+    pairs.append((c.G1_GEN, w_acc))
+    if c.pairing_check(pairs):
+        return [True] * len(cts)
+    return [ct.verify() for ct in cts]
+
+
+def verify_dec_share_sets(jobs, device="cuda") -> list:
+    """Merged verification of many t+1 decryption-share sets: ``jobs`` are
+    ``(pks, items, ct)`` triples (``items`` the ``(index, DecryptionShare)``
+    list of one instance).  Each job's FS-randomized check joins ONE
+    pairing-product check; on a merged failure every job is checked alone,
+    so the verdicts match the per-job ground truth."""
+    from hbbft_tpu_torch.crypto import tc
+
+    if not jobs:
+        return []
+    seed = hashlib.sha3_256(
+        b"HBBFT-TD-MULTI"
+        + b"".join(ct.to_bytes() + b"".join(s.to_bytes() for _, s in items)
+                   for _pks, items, ct in jobs)
+    ).digest()
+    pairs = []
+    per_job = []
+    for j, (pks, items, ct) in enumerate(jobs):
+        h = tc._hash_ciphertext_point(ct.u, ct.v)
+        rhos = _fs_scalars(seed, len(items), offset=j * 4096)
+        acc_share = rlc_fold_g1([s.point for _, s in items], rhos, device=device)
+        acc_pk = rlc_fold_g1([pks.public_key_share(i).point for i, _ in items], rhos,
+                             device=device)
+        job_pairs = [(c.g1_neg(acc_share), h), (acc_pk, ct.w)]
+        per_job.append(job_pairs)
+        pairs.extend(job_pairs)
+    if len(jobs) == 1:
+        return [c.pairing_check(per_job[0])]
+    if c.pairing_check(pairs):
+        return [True] * len(jobs)
+    return [c.pairing_check(jp) for jp in per_job]
+
+
+def batch_verify_sig_shares(pairs: Sequence[Tuple[object, object]], msg: bytes,
+                            rng: random.Random, device="cuda") -> bool:
+    """All-or-nothing check of (PublicKeyShare, SignatureShare) pairs: True
+    ⟹ every share is valid; False ⟹ at least one is not (the caller
+    verifies per share for blame).  Both MSMs are dispatched before either
+    is collected, so the G1 and G2 ladders overlap on the card."""
+    if not pairs:
+        return True
+    cc = cache_for(device)
+    rs = [rng.getrandbits(_RAND_BITS) | 1 for _ in pairs]
+    h_sig = cc._msm_dispatch("g2", [s.point for _, s in pairs], rs)
+    h_pk = cc._msm_dispatch("g1", [p.point for p, _ in pairs], rs)
+    sig_comb = cc._msm_collect(h_sig)
+    pk_comb = cc._msm_collect(h_pk)
+    if sig_comb is None or pk_comb is None:
+        # Σ rᵢσᵢ = ∞ only if shares are invalid (or every input is ∞)
+        return sig_comb is None and pk_comb is None
+    return c.pairing_check([(c.g1_neg(c.G1_GEN), sig_comb), (pk_comb, c.hash_g2(msg))])
+
+
+def batch_verify_dec_shares(pairs: Sequence[Tuple[object, object]], ct,
+                            rng: random.Random, device="cuda") -> bool:
+    """All-or-nothing check of (PublicKeyShare, DecryptionShare) pairs
+    against a TPKE ciphertext (U, V, W)."""
+    from hbbft_tpu_torch.crypto.tc import _hash_ciphertext_point
+
+    if not pairs:
+        return True
+    cc = cache_for(device)
+    rs = [rng.getrandbits(_RAND_BITS) | 1 for _ in pairs]
+    h_d = cc._msm_dispatch("g1", [d.point for _, d in pairs], rs)
+    h_pk = cc._msm_dispatch("g1", [p.point for p, _ in pairs], rs)
+    d_comb = cc._msm_collect(h_d)
+    pk_comb = cc._msm_collect(h_pk)
+    if d_comb is None or pk_comb is None:
+        return d_comb is None and pk_comb is None
+    return c.pairing_check([(c.g1_neg(d_comb), _hash_ciphertext_point(ct.u, ct.v)),
+                            (pk_comb, ct.w)])

@@ -6,8 +6,9 @@ Mirrors the API surface of the ``threshold_crypto`` crate the reference links
 (threshold signatures — the common coin), ``Ciphertext``/``DecryptionShare``
 (threshold encryption — HoneyBadger contributions), and ``Poly``/
 ``Commitment`` (the threshold polynomial behind a key set).  The port's
-copy of the JAX package's module; it leaves out the bivariate DKG
-polynomials, which no part of the port deals in yet.
+copy of the JAX package's module, with the bivariate DKG polynomial and its
+commitment (``BivarPoly``/``BivarCommitment``) that ``crypto/batch.py``'s
+DKG calls take.
 
 Scheme (self-consistent; bit-compat with the Rust crate is not required):
  - public keys in G1 (``pk = g1^sk``), signatures in G2 (``σ = H_G2(m)^sk``),
@@ -469,6 +470,131 @@ class Commitment:
             isinstance(other, Commitment)
             and len(self.points) == len(other.points)
             and all(c.g1_eq(a, b) for a, b in zip(self.points, other.points))
+        )
+
+    def __hash__(self):
+        return hash(self.to_bytes())
+
+
+class BivarPoly:
+    """Symmetric bivariate polynomial over Fr, degree t in each variable.
+
+    Reference: ``threshold_crypto::poly::BivarPoly`` — the DKG dealer's
+    object in ``SyncKeyGen``.  Symmetry (c[i][j] == c[j][i]) is what lets
+    node j cross-check node i's row against its own.
+    """
+
+    __slots__ = ("degree_", "coeffs")
+
+    def __init__(self, degree: int, coeffs):
+        self.degree_ = degree
+        self.coeffs = coeffs  # (t+1)×(t+1) symmetric
+
+    @classmethod
+    def random(cls, degree: int, rng) -> "BivarPoly":
+        t = degree
+        m = [[0] * (t + 1) for _ in range(t + 1)]
+        for i in range(t + 1):
+            for j in range(i, t + 1):
+                v = rng.randrange(R)
+                m[i][j] = v
+                m[j][i] = v
+        return cls(t, m)
+
+    def degree(self) -> int:
+        return self.degree_
+
+    def evaluate(self, x: int, y: int) -> int:
+        acc = 0
+        xp = 1
+        for i in range(self.degree_ + 1):
+            yp = 1
+            for j in range(self.degree_ + 1):
+                acc = (acc + self.coeffs[i][j] * xp % R * yp) % R
+                yp = yp * y % R
+            xp = xp * x % R
+        return acc
+
+    def row(self, x: int) -> Poly:
+        """The univariate poly f(x, ·)."""
+        out = []
+        for j in range(self.degree_ + 1):
+            acc = 0
+            xp = 1
+            for i in range(self.degree_ + 1):
+                acc = (acc + self.coeffs[i][j] * xp) % R
+                xp = xp * x % R
+            out.append(acc)
+        return Poly(out)
+
+    def commitment(self) -> "BivarCommitment":
+        return BivarCommitment(
+            self.degree_,
+            [
+                [c.g1_mul(c.G1_GEN, v) for v in row]
+                for row in self.coeffs
+            ],
+        )
+
+
+class BivarCommitment:
+    """G1 commitment matrix to a BivarPoly.
+
+    Reference: ``threshold_crypto::poly::BivarCommitment``.
+    """
+
+    __slots__ = ("degree_", "points")
+
+    def __init__(self, degree: int, points):
+        self.degree_ = degree
+        self.points = points
+
+    def degree(self) -> int:
+        return self.degree_
+
+    def evaluate(self, x: int, y: int):
+        # Horner in both variables: every scalar-mul is by the evaluation
+        # point itself, never by a full-width power — and DKG evaluation
+        # points are node indices, which g1_mul's small-scalar fast path
+        # turns into a handful of Python group ops each
+        acc = None
+        for i in reversed(range(self.degree_ + 1)):
+            row_acc = None
+            for j in reversed(range(self.degree_ + 1)):
+                row_acc = c.g1_add(
+                    c.g1_mul(row_acc, y) if row_acc is not None else None,
+                    self.points[i][j],
+                )
+            acc = c.g1_add(
+                c.g1_mul(acc, x) if acc is not None else None, row_acc
+            )
+        return acc
+
+    def row(self, x: int) -> Commitment:
+        if x % R == 0:  # x^i vanishes for i > 0
+            return Commitment(list(self.points[0]))
+        out = []
+        for j in range(self.degree_ + 1):
+            # Horner over i: muls are by x itself (small for node indices)
+            acc = None
+            for i in reversed(range(self.degree_ + 1)):
+                acc = c.g1_add(
+                    c.g1_mul(acc, x) if acc is not None else None,
+                    self.points[i][j],
+                )
+            out.append(acc)
+        return Commitment(out)
+
+    def to_bytes(self) -> bytes:
+        return b"".join(
+            c.g1_to_bytes(p) for row in self.points for p in row
+        )
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, BivarCommitment)
+            and self.degree_ == other.degree_
+            and self.to_bytes() == other.to_bytes()
         )
 
     def __hash__(self):

@@ -1,16 +1,25 @@
-"""Batched G1/G2 Jacobian point arithmetic over the lazy field.
+"""Batched G1/G2 Jacobian point arithmetic.
 
-Counterpart of ``hbbft_tpu/ops/gcurve.py`` for the lazy ladder: the same
-formulas (dbl-2009-l doubling, add-2007-bl addition) written once over a
-field-ops bundle, and the MSB-first double-and-add ladder
-:func:`scalar_mul_lazy` with infinity as an explicit flag.  On the card the
-whole ladder is one launch of ``csrc/ladder_lazy.cu``
-(:mod:`hbbft_tpu_torch.ops.ladder_lazy`); its plain version, on the CPU and
-as the card's reference, is the stepwise :func:`scalar_mul_lazy_plain`.  A
+Counterpart of ``hbbft_tpu/ops/gcurve.py``: the same formulas (dbl-2009-l
+doubling, add-2007-bl addition) written once over a field-ops bundle.  A
 coordinate of R points is one (NL, R) column tensor (G1) or one (NL, 2R)
 tensor [re | im] (G2, see ``ops/fp381.py``).
 
-The windowed ladder, ``msm`` and the canonical field are not ported yet.
+- Over the **canonical** field (``FP_OPS``/``FP2_OPS``): the complete
+  addition :func:`point_add` (∞ operands, P = Q and P = −Q by masks), the
+  general double-and-add ladder :func:`scalar_mul` (Z = 0 is infinity) and
+  :func:`msm` (ladders, then a tree fold by halving).  Plain PyTorch on
+  every device, as they are XLA functions in the reference.
+- Over the **lazy** field (``LAZY_FP_OPS``/``LAZY_FP2_OPS``), infinity as
+  an explicit flag, scalars < 2^128: the MSB-first bitwise ladder
+  :func:`scalar_mul_lazy` and the 4-bit windowed ladder
+  :func:`scalar_mul_lazy_window`.  On the card each is one launch of a
+  hand-written kernel (``csrc/ladder_lazy.cu``, ``csrc/ladder_window.cu``
+  through :mod:`hbbft_tpu_torch.ops.ladder_lazy`); their plain versions, on
+  the CPU and as the kernels' reference on the card, are the stepwise
+  :func:`scalar_mul_lazy_plain` and :func:`scalar_mul_lazy_window_plain`.
+  Every ladder of :mod:`hbbft_tpu_torch.crypto.batch` runs the windowed
+  one, the faster at every row count measured (PERF.md).
 """
 
 from __future__ import annotations
@@ -23,6 +32,30 @@ import torch
 from hbbft_tpu_torch.crypto.bls12_381 import R
 from hbbft_tpu_torch.ops import fp381 as F
 from hbbft_tpu_torch.ops import ladder_lazy
+
+
+class _FpOps:
+    """The canonical field over Fp (exact [0, p) digits)."""
+
+    fp2 = False
+    add = staticmethod(F.fp_add)
+    sub = staticmethod(F.fp_sub)
+    mul = staticmethod(F.fp_mul)
+    sqr = staticmethod(F.fp_sqr)
+    neg = staticmethod(F.fp_neg)
+    is_zero = staticmethod(F.fp_is_zero)
+    select = staticmethod(F.fp_select)
+
+
+class _Fp2Ops:
+    fp2 = True
+    add = staticmethod(F.fp2_add)
+    sub = staticmethod(F.fp2_sub)
+    mul = staticmethod(F.fp2_mul)
+    sqr = staticmethod(F.fp2_sqr)
+    neg = staticmethod(F.fp2_neg)
+    is_zero = staticmethod(F.fp2_is_zero)
+    select = staticmethod(F.fp2_select)
 
 
 class _LazyFpOps:
@@ -50,6 +83,8 @@ class _LazyFp2Ops:
     select = staticmethod(F.fp2_select)
 
 
+FP_OPS = _FpOps()
+FP2_OPS = _Fp2Ops()
 LAZY_FP_OPS = _LazyFpOps()
 LAZY_FP2_OPS = _LazyFp2Ops()
 
@@ -99,12 +134,92 @@ def point_add_raw(o, p1, p2):
     return (x3, y3, z3)
 
 
+def point_add(o, p1, p2):
+    """Complete addition over the canonical field: ∞ operands (Z = 0),
+    P == Q (through the doubling) and P == −Q (Z3 = …·H = 0) by masks."""
+    x1, y1, z1 = p1
+    x2, y2, z2 = p2
+    inf1 = o.is_zero(z1)
+    inf2 = o.is_zero(z2)
+
+    z1z1 = o.sqr(z1)
+    z2z2 = o.sqr(z2)
+    u1 = o.mul(x1, z2z2)
+    u2 = o.mul(x2, z1z1)
+    s1 = o.mul(o.mul(y1, z2), z2z2)
+    s2 = o.mul(o.mul(y2, z1), z1z1)
+    h = o.sub(u2, u1)
+    r = o.sub(s2, s1)
+    is_dbl = o.is_zero(h) & o.is_zero(r) & ~inf1 & ~inf2
+
+    i = o.sqr(o.add(h, h))
+    j = o.mul(h, i)
+    r2 = o.add(r, r)
+    v = o.mul(u1, i)
+    x3 = o.sub(o.sub(o.sqr(r2), j), o.add(v, v))
+    y3 = o.sub(o.mul(r2, o.sub(v, x3)), _dbl_small(o, o.mul(s1, j), 1))
+    z3 = o.mul(_dbl_small(o, o.mul(z1, z2), 1), h)
+
+    out = point_select(o, is_dbl, point_double(o, p1), (x3, y3, z3))
+    return point_select(o, inf2, p1, point_select(o, inf1, p2, out))
+
+
 def point_select(o, mask, p, q):
     return (
         o.select(mask, p[0], q[0]),
         o.select(mask, p[1], q[1]),
         o.select(mask, p[2], q[2]),
     )
+
+
+@torch.inference_mode()
+def scalar_mul(o, pt, bits: torch.Tensor):
+    """The general MSB-first double-and-add ladder over the canonical field
+    with the complete addition (Z = 0 is infinity): pt (X, Y, Z) over R
+    rows, bits (R, nbits) little-endian.  Any scalar width."""
+    nbits = bits.shape[-1]
+    bits_t = bits.t().contiguous().bool()
+    acc = tuple(torch.zeros_like(c) for c in pt)
+    for i in range(nbits):
+        acc = point_double(o, acc)
+        acc = point_select(o, bits_t[nbits - 1 - i], point_add(o, acc, pt), acc)
+    return acc
+
+
+def _rows(o, c, lo: int, hi: int):
+    """Points lo … hi − 1 of one coordinate."""
+    if not o.fp2:
+        return c[:, lo:hi]
+    R = c.shape[1] // 2
+    return torch.cat([c[:, lo:hi], c[:, R + lo:R + hi]], dim=1)
+
+
+def _pad_points(o, c, n: int):
+    """n infinity (all-zero) points appended to one coordinate."""
+    if not o.fp2:
+        return torch.nn.functional.pad(c, (0, n))
+    re, im = F.fp2_parts(c)
+    return torch.cat([torch.nn.functional.pad(re, (0, n)),
+                      torch.nn.functional.pad(im, (0, n))], dim=1)
+
+
+@torch.inference_mode()
+def msm(o, pt, bits: torch.Tensor):
+    """Σ_r bits[r]·pt[r] over the canonical field: one batched ladder, then
+    a tree of complete additions that halves the batch each level (padded
+    with infinity to a power of two).  Returns one point (R = 1)."""
+    pts = scalar_mul(o, pt, bits)
+    B = bits.shape[0]
+    size = 1
+    while size < B:
+        size *= 2
+    pts = tuple(_pad_points(o, c, size - B) for c in pts)
+    while size > 1:
+        half = size // 2
+        pts = point_add(o, tuple(_rows(o, c, 0, half) for c in pts),
+                        tuple(_rows(o, c, half, size) for c in pts))
+        size = half
+    return pts
 
 
 def scalar_mul_lazy(o, pt, bits: torch.Tensor, base_inf: torch.Tensor):
@@ -147,6 +262,73 @@ def ladder_step(o, acc, inf, pt, base_inf, bit):
     res_inf = inf & base_inf
     acc = point_select(o, bit, res, acc)
     inf = torch.where(bit, res_inf, inf)
+    return acc, inf
+
+
+WINDOW = 4  # bits a window of the windowed ladder
+
+
+def scalar_mul_lazy_window(o, pt, bits: torch.Tensor, base_inf: torch.Tensor):
+    """The 4-bit windowed variant of :func:`scalar_mul_lazy`: the same
+    lazy-field and scalar regime, 139 doubles and 40 additions for 132 bits
+    against 132 and 132.  ``bits.shape[-1]`` must be a multiple of 4.
+
+    On CUDA tensors: ONE launch of the windowed kernel
+    (``csrc/ladder_window.cu``; it raises rather than fall back).  On CPU
+    tensors: :func:`scalar_mul_lazy_window_plain` over ``o``."""
+    if not pt[0].is_cuda:
+        return scalar_mul_lazy_window_plain(o, pt, bits, base_inf)
+    return ladder_lazy.ladder_window(pt, bits, base_inf, fp2=o.fp2)
+
+
+def window_table(o, pt):
+    """[P, 2P, …, 15P]: even entries by doubling, odd by a raw addition of
+    P (always distinct x inside the scalar regime)."""
+    table = [pt]
+    for k in range(2, 1 << WINDOW):
+        if k % 2 == 0:
+            table.append(point_double(o, table[k // 2 - 1]))
+        else:
+            table.append(point_add_raw(o, table[k - 2], pt))
+    return table
+
+
+def window_indices(bits: torch.Tensor) -> torch.Tensor:
+    """(R, nbits) little-endian bits → (nbits / 4, R) window values, the
+    most significant window first."""
+    R, nbits = bits.shape
+    if nbits % WINDOW:
+        raise ValueError(f"the windowed ladder takes a multiple of {WINDOW} bits, not {nbits}")
+    w = bits.to(torch.int64).reshape(R, nbits // WINDOW, WINDOW)
+    idx = (w << torch.arange(WINDOW, device=bits.device)).sum(-1)
+    return idx.flip(1).t().contiguous()
+
+
+@torch.inference_mode()
+def scalar_mul_lazy_window_plain(o, pt, bits: torch.Tensor, base_inf: torch.Tensor):
+    """:func:`scalar_mul_lazy_window` as a Python loop of plain field ops,
+    digit- and inf-exact with the reference's ``scalar_mul_lazy_window``:
+    the table, then per window (MSB first) 4 doubles and one addition of
+    the entry the window selects, infinity as a flag.  The entry is chosen
+    by index (the reference's one-hot contraction selects the same digits;
+    a zero window leaves the accumulator as it is)."""
+    table = window_table(o, pt)
+    stacked = [torch.stack([t[c] for t in table]) for c in range(3)]  # (15, NL, W)
+    cols = torch.arange(pt[0].shape[1], device=bits.device)
+    acc = tuple(torch.zeros_like(c) for c in pt)
+    inf = torch.ones(base_inf.shape, dtype=torch.bool, device=base_inf.device)
+    for idx in window_indices(bits):
+        for _ in range(WINDOW):
+            acc = point_double(o, acc)
+        entry = (idx - 1).clamp(min=0)
+        if o.fp2:
+            entry = torch.cat([entry, entry])
+        sel = tuple(t[entry, :, cols].t() for t in stacked)
+        added = point_add_raw(o, acc, sel)
+        res = point_select(o, inf, sel, point_select(o, base_inf, acc, added))
+        used = idx != 0
+        acc = point_select(o, used, res, acc)
+        inf = torch.where(used, inf & base_inf, inf)
     return acc, inf
 
 

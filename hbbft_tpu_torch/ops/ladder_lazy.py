@@ -1,4 +1,4 @@
-"""The whole-ladder kernel: one launch runs a lazy scalar-mul ladder.
+"""The whole-ladder kernels: one launch runs a lazy scalar-mul ladder.
 
 Counterpart of ``hbbft_tpu/ops/gcurve.py :: scalar_mul_lazy`` — on the TPU
 one XLA program (a ``jax.lax.fori_loop`` over point_double, point_add_raw,
@@ -12,6 +12,11 @@ inf-exact with
 :func:`hbbft_tpu_torch.ops.gcurve.scalar_mul_lazy_plain`, its plain version,
 which :func:`hbbft_tpu_torch.ops.gcurve.scalar_mul_lazy` runs on CPU
 tensors.
+
+The windowed ladder (``gcurve.scalar_mul_lazy_window``: a table of 15
+multiples, then 4 doubles and one table addition a window) is the second
+kernel, ``csrc/ladder_window.cu``, on the same step machinery
+(``csrc/ladder_steps.cuh``): :func:`ladder_window`.
 """
 
 from __future__ import annotations
@@ -25,30 +30,45 @@ NL = F.NL
 
 
 def ladder_lazy(pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool):
-    """One launch of the whole-ladder kernel on CUDA tensors.
+    """One launch of the bitwise whole-ladder kernel on CUDA tensors.
 
     pt: (X, Y, Z), each int32 (NL, R) (G1) or (NL, 2R) [re | im] (G2,
     ``fp2=True``); bits: (R, nbits) bool/int, little-endian; base_inf: bool
     (R,).  Returns ((X, Y, Z), inf) in the same layout."""
+    return _launch("ladder_lazy", pt, bits, base_inf, fp2)
+
+
+def ladder_window(pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool):
+    """One launch of the 4-bit windowed whole-ladder kernel
+    (``csrc/ladder_window.cu``) on CUDA tensors, digit- and inf-exact with
+    :func:`hbbft_tpu_torch.ops.gcurve.scalar_mul_lazy_window_plain`.
+    Arguments and result as :func:`ladder_lazy`; ``nbits`` must be a
+    multiple of 4."""
+    if bits.dim() == 2 and bits.shape[1] % 4:
+        raise ValueError(f"ladder_window takes a multiple of 4 bits, not {bits.shape[1]}")
+    return _launch("ladder_window", pt, bits, base_inf, fp2)
+
+
+def _launch(name: str, pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool):
     x, y, z = pt
     dev = x.device
     if dev.type != "cuda":
-        raise ValueError("ladder_lazy runs on CUDA tensors (the plain ladder "
-                         "is gcurve.scalar_mul_lazy_plain)")
+        raise ValueError(f"{name} runs on CUDA tensors (the plain ladders are "
+                         "gcurve.scalar_mul_lazy_plain and scalar_mul_lazy_window_plain)")
     if bits.dim() != 2:
-        raise ValueError(f"ladder_lazy bits shape {tuple(bits.shape)}: expected (R, nbits)")
+        raise ValueError(f"{name} bits shape {tuple(bits.shape)}: expected (R, nbits)")
     R, nbits = bits.shape
     width = 2 * R if fp2 else R
     for c in pt:
         if c.dtype != torch.int32 or tuple(c.shape) != (NL, width):
             raise ValueError(
-                f"ladder_lazy coordinate {c.dtype} {tuple(c.shape)}: expected "
+                f"{name} coordinate {c.dtype} {tuple(c.shape)}: expected "
                 f"int32 ({NL}, {width})"
             )
     if tuple(base_inf.shape) != (R,):
-        raise ValueError(f"ladder_lazy base_inf shape {tuple(base_inf.shape)}: expected ({R},)")
+        raise ValueError(f"{name} base_inf shape {tuple(base_inf.shape)}: expected ({R},)")
     if any(t.device != dev for t in (y, z, bits, base_inf)):
-        raise ValueError("ladder_lazy operands on different devices")
+        raise ValueError(f"{name} operands on different devices")
     x, y, z = (c.contiguous() for c in pt)
     bits = bits.to(torch.int32).contiguous()
     base_inf = base_inf.to(torch.bool).contiguous()
@@ -56,12 +76,13 @@ def ladder_lazy(pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool):
     inf = torch.empty((R,), dtype=torch.bool, device=dev)
     if R:
         k = F.consts(dev)
-        rc = _build.lib("ladder_lazy").hb_ladder_lazy(
+        lib = _build.lib(name)
+        rc = getattr(lib, _build.KERNELS[name][1])(
             x.data_ptr(), y.data_ptr(), z.data_ptr(), bits.data_ptr(),
             base_inf.data_ptr(), k.fold.data_ptr(), k.subc.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             inf.data_ptr(), R, nbits, int(fp2), _build.stream_ptr(x),
         )
-        _build.check("ladder_lazy", rc)
-        _build.LAUNCHES["ladder_lazy"] += 1
+        _build.check(name, rc)
+        _build.LAUNCHES[name] += 1
     return out, inf

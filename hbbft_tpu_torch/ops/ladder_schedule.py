@@ -27,6 +27,16 @@ that started earlier in the simulated schedule, so no warp order can
 deadlock.  ``SEL`` writes the next accumulator:
 ``acc = bit ? (inf ? base : (base_inf ? d : s)) : d``.
 
+The windowed kernel (``csrc/ladder_window.cu``) runs the same step table
+and two more over the same slot layout, both without selects: ``dbl``
+(``point_double`` of the accumulator alone) and ``addp`` (``point_add_raw``
+of the accumulator and the base point, for the table's odd entries).  Their
+results stay in temporaries (``outs``), which the kernel copies after a
+barrier, to the accumulator or to a table entry.  A table entry holds what
+the base block holds — the coordinates and the prologue's values — so
+before a window's step the kernel copies the selected entry into the base
+block and the step table runs unchanged.
+
 ``python -m hbbft_tpu_torch.ops.ladder_schedule`` writes
 ``csrc/ladder_schedule.h`` from :func:`header`;
 ``tests/test_torch_ladder.py`` checks that the file is current and runs the
@@ -126,12 +136,18 @@ class _SymFp2:
         return t0, f.add(t1, t1)
 
 
+KINDS = ("step", "dbl", "addp")  # the tables, see the module docstring
+
+
 @dataclass(frozen=True)
 class Schedule:
-    """One group's tables.  Slots: ``acc`` then ``base`` (3 or 6 each, in
-    (x, y, z) × (re, im) order), then prologue results, then the step's
-    temporaries.  An op is ``(kind, dst, a, b, c, wait)`` (``c`` only for
-    SEL; ``wait``: which sources another warp computes in this step)."""
+    """One group's table of one kind.  Slots: ``acc`` then ``base`` (3 or 6
+    each, in (x, y, z) × (re, im) order), then prologue results (the base
+    block ends at ``first_temp``, the same for every kind), then the
+    table's temporaries.  An op is ``(kind, dst, a, b, c, wait)`` (``c``
+    only for SEL; ``wait``: which sources another warp computes in this
+    step).  ``outs``: the temporaries that hold the result of a table
+    without selects (empty for ``step``, whose selects write ``acc``)."""
 
     warps: int
     n_acc: int
@@ -140,19 +156,32 @@ class Schedule:
     prologue: Tuple[tuple, ...]
     lists: Tuple[Tuple[tuple, ...], ...]  # one ordered op list per warp
     makespan: int  # simulated cycles of one step
+    outs: Tuple[int, ...] = ()
 
 
 def _flat(p, fp2):
     return [e for c in p for e in (c if fp2 else (c,))]
 
 
-def build(group: str) -> Schedule:
+def build(group: str, kind: str = "step") -> Schedule:
     """Trace, hoist, schedule and assign slots for ``group`` ("g1"/"g2")
-    on its ``WARPS[group]`` warps a row."""
-    return _schedule(group, WARPS[group])
+    and table ``kind`` (one of ``KINDS``) on its ``WARPS[group]`` warps a
+    row."""
+    return _schedule(group, WARPS[group], kind)
 
 
-def _schedule(group: str, warps: int) -> Schedule:
+def _live(t, outs):
+    """The traced ops that reach ``outs``, in trace order."""
+    live, stack = set(), list(outs)
+    while stack:
+        v = stack.pop()
+        if id(v) not in live:
+            live.add(id(v))
+            stack.extend(v.srcs)
+    return [v for v in t.ops if id(v) in live]
+
+
+def _schedule(group: str, warps: int, kind: str = "step") -> Schedule:
     fp2 = group == "g2"
     t = _Tracer()
     o = _SymFp2(t) if fp2 else _SymFp(t)
@@ -165,17 +194,18 @@ def _schedule(group: str, warps: int) -> Schedule:
     acc, base = point(False), point(True)
     d = G.point_double(o, acc)
     s = G.point_add_raw(o, d, base)
-    outs = [t.op(SEL, b, dv, sv)
+    sels = [t.op(SEL, b, dv, sv)
             for dv, sv, b in zip(_flat(d, fp2), _flat(s, fp2), _flat(base, fp2))]
-
-    live, stack = set(), list(outs)  # only what reaches a select
-    while stack:
-        v = stack.pop()
-        if id(v) not in live:
-            live.add(id(v))
-            stack.extend(v.srcs)
-    ops = [v for v in t.ops if id(v) in live]
-    prologue_vals = [v for v in ops if v.const]
+    # the base block is the step's: its prologue, whatever the table
+    prologue_vals = [v for v in _live(t, sels) if v.const]
+    if kind == "step":
+        outs = sels
+    elif kind == "dbl":
+        outs = _flat(d, fp2)
+    else:
+        outs = _flat(G.point_add_raw(o, acc, base), fp2)
+    ops = _live(t, outs)
+    assert all(id(v) in {id(p) for p in prologue_vals} for v in ops if v.const)
     step_vals = [v for v in ops if not v.const]
 
     inputs = _flat(acc, fp2) + _flat(base, fp2)
@@ -185,7 +215,8 @@ def _schedule(group: str, warps: int) -> Schedule:
     n_slots = first_temp + len(temps)
     assert n_slots <= 256, "slot ids are bytes"
     slot = {id(v): i for i, v in enumerate(inputs + prologue_vals + temps)}
-    slot.update({id(v): i for i, v in enumerate(outs)})  # the selects write acc
+    if kind == "step":
+        slot.update({id(v): i for i, v in enumerate(outs)})  # the selects write acc
 
     warp_of: Dict[int, int] = {}
 
@@ -238,14 +269,15 @@ def _schedule(group: str, warps: int) -> Schedule:
             if id(x) in anc:
                 a |= anc[id(x)] | {id(x)}
         anc[id(v)] = a
-    for v in outs:
+    for v in sels if kind == "step" else ():
         readers = [u for u in step_vals if any(slot[id(x)] == slot[id(v)] and x in inputs
                                                for x in u.srcs)]
         assert all(id(u) in anc[id(v)] for u in readers), "select overwrites a live slot"
 
     return Schedule(warps, n_acc, first_temp, n_slots,
                     tuple(enc(v) for v in prologue_vals),
-                    tuple(tuple(ls) for ls in lists), max(finish.values()))
+                    tuple(tuple(ls) for ls in lists), max(finish.values()),
+                    () if kind == "step" else tuple(slot[id(v)] for v in outs))
 
 
 def _c_ops(ops) -> str:
@@ -253,6 +285,25 @@ def _c_ops(ops) -> str:
     for kind, dst, a, b, c, wait in ops:
         rows.append(f"  {{{KIND_NAMES[kind]}, {dst}, {a}, {b}, {c}, {wait}}},")
     return "\n".join(rows)
+
+
+def _begins(s: Schedule) -> List[int]:
+    begins = [0]
+    for ls in s.lists:
+        begins.append(begins[-1] + len(ls))
+    return begins
+
+
+def _c_table(name: str, s: Schedule) -> List[str]:
+    """``<name>Ops`` (every warp's list, one after another) and
+    ``<name>Begin`` (where each warp's list starts)."""
+    begins = _begins(s)
+    return [
+        f"__constant__ Op {name}Ops[{begins[-1]}] = {{",
+        "\n".join(f"  // warp {w}\n" + _c_ops(ls) for w, ls in enumerate(s.lists)),
+        "};",
+        f"__constant__ int {name}Begin[{s.warps + 1}] = {{{', '.join(map(str, begins))}}};",
+    ]
 
 
 def header() -> str:
@@ -276,31 +327,42 @@ def header() -> str:
     ]
     for group in ("g1", "g2"):
         s = build(group)
-        begins = [0]
-        for ls in s.lists:
-            begins.append(begins[-1] + len(ls))
+        win = {k: build(group, k) for k in KINDS[1:]}
+        g = group.upper()
+        begins = _begins(s)
         out += [
             "",
-            f"// {group.upper()}: {s.warps} warps a row, {s.n_slots} slots, "
+            f"// {g}: {s.warps} warps a row, {s.n_slots} slots, "
             f"{len(s.prologue)} prologue and {begins[-1]} step operations, "
             f"~{s.makespan} cycles a step (simulated)",
-            f"struct {group.upper()} {{",
+            f"struct {g} {{",
             f"  static constexpr int kWarps = {s.warps};",
             f"  static constexpr int kAcc = {s.n_acc};",
             f"  static constexpr int kFirstTemp = {s.first_temp};",
             f"  static constexpr int kSlots = {s.n_slots};",
             f"  static constexpr int kPrologue = {len(s.prologue)};",
             f"  static constexpr int kOps = {begins[-1]};",
+            "  // the windowed kernel's: slots of its three tables, ops of the others",
+            f"  static constexpr int kWinSlots = "
+            f"{max([s.n_slots] + [w.n_slots for w in win.values()])};",
+            f"  static constexpr int kDblOps = {_begins(win['dbl'])[-1]};",
+            f"  static constexpr int kAddpOps = {_begins(win['addp'])[-1]};",
             "};",
-            f"__constant__ Op k{group.upper()}Prologue[{max(len(s.prologue), 1)}] = {{",
+            f"__constant__ Op k{g}Prologue[{max(len(s.prologue), 1)}] = {{",
             _c_ops(s.prologue) if s.prologue else "  {0, 0, 0, 0, 0, 0},",
             "};",
-            f"__constant__ Op k{group.upper()}Ops[{begins[-1]}] = {{",
-            "\n".join(f"  // warp {w}\n" + _c_ops(ls) for w, ls in enumerate(s.lists)),
-            "};",
-            f"__constant__ int k{group.upper()}Begin[{s.warps + 1}] = "
-            f"{{{', '.join(map(str, begins))}}};",
         ]
+        out += _c_table(f"k{g}", s)
+        for kind, w in win.items():
+            name = f"k{g}{kind.capitalize()}"
+            out += [
+                "",
+                f"// {g} {kind}: {w.n_slots} slots, {_begins(w)[-1]} operations, "
+                f"~{w.makespan} cycles (simulated); the result in slots `{name}Out`",
+            ]
+            out += _c_table(name, w)
+            out.append(f"__constant__ uint8_t {name}Out[{w.n_acc}] = "
+                       f"{{{', '.join(map(str, w.outs))}}};")
     out += ["", "}  // namespace hb_sched", ""]
     return "\n".join(out)
 

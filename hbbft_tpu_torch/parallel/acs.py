@@ -13,6 +13,7 @@ host oracle.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -164,6 +165,11 @@ class BatchedHoneyBadgerEpoch:
         self.device = resolve_device(device)
         self.encrypt_backend = encrypt_backend
         self.acs = BatchedAcs(self.n, self.f, device=self.device)
+        # share verification for callers that check coin shares around this
+        # epoch; the god-view epoch derives its coins from the master scalar
+        from hbbft_tpu_torch.crypto.batch import batch_verify_sig_shares
+
+        self.coin_verify = functools.partial(batch_verify_sig_shares, device=self.device)
 
     def encrypt_phase(self, contributions: Dict, rng,
                       encrypt: bool = True) -> List[bytes]:

@@ -341,6 +341,52 @@ def test_schedule_runs_every_operation_once_at_any_width(group, warps):
     assert len({op[1] for op in seen if op[0] != S.SEL}) == sched.n_slots - sched.first_temp
 
 
+@pytest.mark.parametrize("warps", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["dbl", "addp"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_window_tables_run_every_operation_once(group, kind, warps):
+    """The windowed kernel's tables without selects at any width: every
+    operation once, no deadlock under the flags, the base block the step
+    table's, and the kinds of the plain formulas in G1 (dbl: 7 products,
+    10 sums, 4 differences; addp: 15 products — Z2² is the prologue's — 5
+    sums, 6 differences)."""
+    sched = S._schedule(group, warps, kind)
+    step = S._schedule(group, warps)
+    assert (sched.n_acc, sched.first_temp, sched.prologue) == \
+        (step.n_acc, step.first_temp, step.prologue)
+    seen = []
+    walk(sched, seen.append)
+    assert sorted(seen) == sorted(op for ls in sched.lists for op in ls)
+    kinds = [op[0] for op in seen]
+    assert S.SEL not in kinds and len(sched.outs) == sched.n_acc
+    assert all(o >= sched.first_temp for o in sched.outs)
+    if group == "g1":
+        want = {"dbl": (7, 10, 4), "addp": (15, 5, 6)}[kind]
+        assert tuple(kinds.count(k) for k in (S.MUL, S.ADD, S.SUB)) == want
+
+
+@pytest.mark.parametrize("kind", ["dbl", "addp"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_lane_model_window_tables_match_plain(group, kind):
+    """One dbl (``point_double`` of acc) and one addp (``point_add_raw`` of
+    acc and base) from the kernel's tables at 3 rows, digit-exact."""
+    rng = np.random.default_rng(67 if group == "g1" else 68)
+    R = 3
+    width = 2 * R if group == "g2" else R
+    acc = tuple(_digits(rng, (NL, width)) for _ in range(3))
+    base = tuple(_digits(rng, (NL, width)) for _ in range(3))
+    ops = G.LAZY_FP2_OPS if group == "g2" else G.LAZY_FP_OPS
+    ref = G.point_double(ops, acc) if kind == "dbl" else G.point_add_raw(ops, acc, base)
+
+    sched = S.build(group, kind)
+    slots = slots_of(sched, acc, base)
+    lane_prologue(sched, slots)
+    walk(sched, lambda op: run_op(slots, op, None, None, None))
+    slots[:sched.n_acc] = [slots[o] for o in sched.outs]
+    for g, r in zip(acc_of(sched, slots), ref):
+        assert torch.equal(g, r)
+
+
 def test_ladder_kernel_wrapper_takes_only_cuda_tensors():
     pts = G.g1_to_device([None], "cpu")
     with pytest.raises(ValueError, match="CUDA"):

@@ -44,6 +44,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: BatchedAcs(1024, 341),
         lambda: batch.batch_tpke_encrypt_device(None, [b"x"], [1]),
         lambda: batch.cache_for("cuda"),
+        lambda: batch.batch_verify_sig_shares([(None, None)], b"m", random.Random(1)),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
