@@ -3,22 +3,28 @@
 on one NVIDIA card.
 
     python3 chip_smoke.py            # build, kernel checks, epochs, coin256, dkg256
+    python3 chip_smoke.py --phases kernel_field,kernel_ladder_window   # those (and build)
 
 Phases, one JSON line each; any failure exits non-zero:
 
 1. ``build``: nvcc builds the four kernels from ``hbbft_tpu_torch/csrc``
    for sm_90a (one nvcc per source, started together) while the native BLS
    oracle builds beside them.
-2. ``kernel_fp_mul_lazy``: Kernel 1 (the warp-per-row lazy multiply)
+2. ``kernel_field``: the lazy field at K = 1, 2 and 4 elements a warp
+   (``fp_lazy.cuh``, through the probe kernel of ``ladder_window.cu``, on
+   no path) digit-exact against the plain field at 37 and 4 096 rows; a
+   warp's latency of a chained MUL, ADD and SUB at each K; the SASS
+   instructions of each (``cuobjdump -sass``).
+3. ``kernel_fp_mul_lazy``: Kernel 1 (the warp-per-row lazy multiply)
    against its plain PyTorch version on the card, digit-exact, at 1, 63,
    128, 256, 384 and 8192 rows.
-3. ``kernel_sha3``: Kernel 2 against its plain version and hashlib,
+4. ``kernel_sha3``: Kernel 2 against its plain version and hashlib,
    byte-exact, over message lengths 0 … 64 KiB and batches up to 4097,
    including the epochs' own shapes (at N = 64 4096 Merkle leaves of one
    shard each and 2048 interior pairs of 64 bytes; at N = 1024 the 65 536
    leaves of one 64-proposer chunk), timed there by CUDA events and by the
    profiler's device time per launch.
-4. ``kernel_ladder``: the bitwise whole-ladder kernel against the plain
+5. ``kernel_ladder``: the bitwise whole-ladder kernel against the plain
    stepwise ladder on the card (plain multiply, no kernel), digit-exact and
    inf-exact, at the encrypt shapes of both epochs (N = 64: G1 256 rows,
    G2 128 rows; N = 1024: G1 4096, G2 2048; 132 bits) with edge rows (a
@@ -27,47 +33,49 @@ Phases, one JSON line each; any failure exits non-zero:
    affine points on five rows of each epoch shape; each shape timed.  No
    path runs this kernel now (the windowed one was faster at every size
    measured); it stays held against its plain version.
-5. ``kernel_ladder_window``: the 4-bit windowed kernel, the one every path
+6. ``kernel_ladder_window``: the 4-bit windowed kernel, the one every path
    runs, against its plain version, digit- and inf-exact, at G1 256 / 37 /
    4 096 / 16 384 rows (N = 64 and coin256, ragged, N = 1024, dkg256's
    forced device route) and G2 128 / 256 / 37 / 2 048 rows, with the same
    edge rows, three rows each against the native oracle; timed with its
-   bound.
-6. ``ladder_crossover``: both ladder kernels at 256 … 65 536 rows, G1 and
-   G2, ms of one launch each by CUDA events: why every dispatch runs the
-   windowed kernel.
-7. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
+   bound, the K it runs at, its registers, spilled bytes, blocks an SM and
+   the SASS instructions of a lazy operation at that K.
+7. ``ladder_crossover``: both ladder kernels at 128 … 65 536 rows, G1 and
+   G2, ms of one launch each by CUDA events, the windowed one also at each
+   K beside the K it picks (every K's result equal): why every dispatch
+   runs the windowed kernel, and at which K.
+8. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
    contributions) with the TPKE encrypt ladders on the card: a warm run
    whose ciphertexts are held against the native oracle's, then 5 timed
    runs, each with every kernel's launch counter reset just before it and
    read just after (2 windowed ladder launches, SHA3 21, Kernel 1 none).
-8. ``profile``: the device's busy share (kernel time from torch.profiler
+9. ``profile``: the device's busy share (kernel time from torch.profiler
    over wall time) and kernel launches, over the whole encrypt phase and
    over ACS + decrypt.
-9. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
+10. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
    1 024 proposers with the GF(2^16) coder: full delivery (every verdict
    and value; four proposers' shards equal to the host ``encode_np`` and
    their roots to hashlib's), data shards altered after the commit (the
    straggler decode and the re-check stage), a framing fault; and the
    device time of the GF(2^16) encode of one 64-proposer chunk.
-10. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
+11. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
     contributions) through the scale path: keygen, a warm run held against
     the native oracle's ciphertexts, 2 timed runs with launch counts as
     derived from the code (ladder 2, SHA3 16 chunks × 11 Merkle levels,
     Kernel 1 none), and one profiled run for the device's idle share and
     the device time of the GF(2^16) product, SHA3 and the ladders.
-11. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
+12. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
     ``batch_verify_sig_shares`` over 256 signature shares (True; False with
     one share over another message; median of 3, its split into host
     dispatch, ladder wait, fetch + host fold and pairing check; the
     ladders' device ms and launches), the MSMs against the host's sums, and
     ``batch_verify_dec_shares`` over 256 decryption shares (True; False
     with one tampered).
-12. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
+13. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
     the forced device route against ``com.row(3)``, ``commitment_eval`` and
     ``bivar_commitment`` on the forced route against their host values,
     and the DKG and fold thresholds' crossovers, host against device.
-13. ``kernels``: every kernel with its launches, errors and times.
+14. ``kernels``: every kernel with its launches, errors and times.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
 the card's int32 pipes (the ``peak`` line: an ALU and an FMA pipe of 64
@@ -85,6 +93,7 @@ import hashlib
 import json
 import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
@@ -244,12 +253,33 @@ def ladder_window_ops(group: str, rows: int, nbits: int):
         return ops_sum([FP_KIND_OPS[kinds[op[0]]]
                         for ls in LS.build(group, kind).lists for op in ls])
 
-    step, dbl, addp = (table(k) for k in LS.KINDS)
+    step, dbl, addp = (table(k) for k in ("step", "dbl", "addp"))
     prologue = ops_sum([FP_KIND_OPS[kinds[op[0]]] for op in LS.build(group).prologue])
     windows = nbits // 4
     per_row = ops_sum([ops_sum([step], windows), ops_sum([dbl], 3 * windows + 7),
                        ops_sum([addp], 7), ops_sum([prologue], 15)])
     return ops_sum([per_row], rows)
+
+
+def window_warp_instructions(group: str, rows: int, nbits: int, k: int, sass: dict) -> float:
+    """Warp instructions the windowed kernel issues for its field operations
+    at K = k: each table's operations (ladder_window_ops' count) times the
+    SASS instructions of that operation at K (``kernel_field``), over the
+    K rows a warp computes at once; the step machinery (waits, flags,
+    barriers, copies) not counted."""
+    from hbbft_tpu_torch.ops import ladder_schedule as LS
+
+    kinds = ("MUL", "ADD", "SUB", "SEL")
+    per_op = {**sass, "SEL": 0}
+
+    def table(kind):
+        return sum(per_op[kinds[op[0]]] for ls in LS.build(group, kind).lists for op in ls)
+
+    prologue = sum(per_op[kinds[op[0]]] for op in LS.build(group).prologue)
+    windows = nbits // 4
+    per_row = (windows * table("step") + (3 * windows + 7) * table("dbl")
+               + 7 * table("addp") + (windows + 1) * prologue)
+    return rows * per_row / k
 
 
 def ladder_bytes(rows: int, width: int, nbits: int) -> int:
@@ -486,6 +516,95 @@ def phase_kernel_sha3(ctx):
                    "main_n1024": f"{N_LARGE * 64}x{leaf_large}"}
     return {"max_abs_err": max_err, "tolerance": 0, "byte_exact": True, "checked": checked,
             "by_shape": shapes}
+
+
+FIELD_KINDS = {"MUL": 0, "ADD": 1, "SUB": 2}
+FIELD_ROWS = (37, 4096)
+FIELD_REPS = 4000
+
+
+def sass_counts(lib_path: str) -> dict:
+    """SASS instructions (NOPs not counted) of every function in a built
+    library, by mangled name, from the toolkit's ``cuobjdump -sass``."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            counts[name] = 0
+        elif name and line.startswith("/*") and "*/" in line:
+            op = line.split("*/", 1)[1].strip().split(" ")[0]
+            if op and not op.startswith("NOP") and not op.startswith("/*"):
+                counts[name] += 1
+    return counts
+
+
+def field_sass_per_op(counts: dict) -> dict:
+    """SASS instructions of one lazy MUL, ADD and SUB at K = 1, 2, 4: each
+    field probe kernel less the empty probe (``ladder_window.cu`` ::
+    lazy_op_probe), found by its mangled template arguments (K, kind)."""
+    def probe(k, kind):
+        tag = f"lazy_op_probeILi{k}EL" + (f"i{kind}E" if kind >= 0 else "in1E")
+        (hit,) = [v for n, v in counts.items() if tag in n]
+        return hit
+
+    return {k: {name: probe(k, kind) - probe(k, -1) for name, kind in FIELD_KINDS.items()}
+            for k in (1, 2, 4)}
+
+
+def phase_kernel_field(ctx):
+    """The lazy field at K = 1, 2 and 4 elements a warp, one operation a
+    launch (the probe kernel of ``csrc/ladder_window.cu``, on no path),
+    digit-exact against the plain field at 37 and 4 096 random rows with
+    extreme digits; a warp's latency of each operation (the operation
+    chained in one block); and the SASS instructions of each operation at
+    each K (``cuobjdump -sass`` of the built library)."""
+    import numpy as np
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.ops import fp381 as F
+    from hbbft_tpu_torch.ops import fp_lazy, ladder_lazy
+
+    dev = torch.device("cuda")
+    fold = F.consts(dev).fold
+    plain = {"MUL": lambda a, b: fp_lazy.mul_lazy_cols(a, b, fold),
+             "ADD": F.fp_add_lazy, "SUB": F.fp_sub_lazy}
+    rng = np.random.default_rng(5)
+    max_err, checked = 0, []
+    for R in FIELD_ROWS:
+        a = rng.integers(0, (1 << 13) + 1, (F.NL, R)).astype(np.int32)
+        b = rng.integers(0, (1 << 13) + 1, (F.NL, R)).astype(np.int32)
+        a[:, 0] = b[:, 0] = 1 << 13
+        b[:, 1] = 0
+        ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        for k in ladder_lazy.KS:
+            for name, kind in FIELD_KINDS.items():
+                got = ladder_lazy.lazy_op_probe(kind, ta, tb, k)
+                err = int((got.long() - plain[name](ta, tb).long()).abs().max())
+                max_err = max(max_err, err)
+                if err:
+                    raise AssertionError(f"lazy {name} at K = {k} differs from the plain field "
+                                         f"at R={R}")
+            checked.append([R, k])
+    torch.cuda.synchronize()
+    # a warp's latency of each operation: one block chains it FIELD_REPS
+    # times (CUDA events around one launch), less the empty chain's time
+    one = torch.from_numpy(rng.integers(0, (1 << 13) + 1, (F.NL, 4)).astype(np.int32)).to(dev)
+    latency_ns = {}
+    for k in ladder_lazy.KS:
+        ms = {name: event_ms_per_launch(
+                  torch, lambda: ladder_lazy.lazy_op_probe(kind, one[:, :k], one[:, :k], k,
+                                                           FIELD_REPS), calls=3)
+              for name, kind in {"none": -1, **FIELD_KINDS}.items()}
+        latency_ns[k] = {name: (ms[name] - ms["none"]) * 1e6 / FIELD_REPS for name in FIELD_KINDS}
+    sass = field_sass_per_op(sass_counts(_build._lib_path("ladder_window")))
+    ctx["field_sass"], ctx["field_latency_ns"] = sass, latency_ns
+    return {"max_abs_err": max_err, "tolerance": 0, "digit_exact": True, "checked": checked,
+            "sass_per_op": sass, "latency_ns": latency_ns, "reps": FIELD_REPS}
 
 
 def _ladder_rows(group: str, rows: int, rng):
@@ -1035,6 +1154,7 @@ def phase_kernel_ladder_window(ctx):
     from hbbft_tpu_torch.native import get_oracle
     from hbbft_tpu_torch.ops import fp381 as F
     from hbbft_tpu_torch.ops import gcurve as G
+    from hbbft_tpu_torch.ops import ladder_lazy
 
     dev = torch.device("cuda")
     nat = get_oracle()
@@ -1076,8 +1196,11 @@ def phase_kernel_ladder_window(ctx):
                 if got != want:
                     raise AssertionError(f"{group} window kernel differs from the native "
                                          f"oracle, row {r} of {rows}")
+            k = ladder_lazy.window_k(rows, group == "g2")
             shape = {"rows": rows, "bits": LADDER_BITS, "plain_ms": plain_ms,
-                     "inf_rows": sum(inf_h)}
+                     "inf_rows": sum(inf_h), "k": k,
+                     **ladder_lazy.window_info(k, group == "g2"),
+                     "sass_per_op": ctx["field_sass"][k]}
             if timed:
                 def run():
                     return G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
@@ -1089,11 +1212,20 @@ def phase_kernel_ladder_window(ctx):
                 n_bytes = ladder_bytes(rows, out[0].shape[1], LADDER_BITS)
                 n_ops = ladder_window_ops(group, rows, LADDER_BITS)
                 bms, by = bound_ms(ctx, n_bytes, n_ops)
+                # the split of the time over the bound: the field's warp
+                # instructions against the bound's (its lane instructions
+                # over 32), and the share of the schedulers' issue slots
+                # (4 an SM a clock) they fill in the time measured
+                issued = window_warp_instructions(group, rows, LADDER_BITS, k,
+                                                  ctx["field_sass"][k])
+                slots = ev_ms * 1e-3 * ctx["sm_clocks_per_s"] * 4
                 shape.update({
                     "ms": time_ms(torch, run, 3, rounds=3), "device_ms_per_launch": dev_ms,
                     "profiler": recorded, "event_ms_per_launch": ev_ms,
                     "bound_ms": bms, "bound_by": by, "share_of_bound": bms / ev_ms,
-                    "bytes": n_bytes, "ops": n_ops})
+                    "bytes": n_bytes, "ops": n_ops, "field_warp_instructions": issued,
+                    "instructions_over_bound": issued * 32 / sum(n_ops),
+                    "issue_share": issued / slots})
             shapes[rows] = shape
         out_groups[group] = shapes
     ctx["window"] = {"max_abs_err": max_err, **out_groups}
@@ -1101,26 +1233,29 @@ def phase_kernel_ladder_window(ctx):
             "by_group": {g: {str(r): v for r, v in d.items()} for g, d in out_groups.items()}}
 
 
-CROSSOVER_ROWS = (256, 512, 1024, 2048, 4096, 16384, 65536)
+CROSSOVER_ROWS = (128, 256, 512, 1024, 2048, 4096, 16384, 65536)
 
 
 def phase_ladder_crossover(ctx):
     """Both ladder kernels at every row count of ``CROSSOVER_ROWS``, G1 and
     G2, 132 bits: ms of one launch by CUDA events (``event_ms_per_launch``),
-    and the largest row count up to which the windowed kernel is the
-    faster.  It fails below the largest count: every dispatch of
-    ``crypto/batch.py`` runs the windowed kernel."""
+    the windowed kernel at each K (rows a block) beside the K it picks, and
+    the largest row count up to which the windowed kernel is the faster.
+    It fails below the largest count (every dispatch of ``crypto/batch.py``
+    runs the windowed kernel), or where two K's results differ."""
     import torch
 
     from hbbft_tpu_torch.ops import fp381 as F
     from hbbft_tpu_torch.ops import gcurve as G
+    from hbbft_tpu_torch.ops import ladder_lazy
 
     dev = torch.device("cuda")
     rng = random.Random(7)
     table = {}
     for group in ("g1", "g2"):
-        ops, to_dev = ((G.LAZY_FP_OPS, G.g1_to_device) if group == "g1"
-                       else (G.LAZY_FP2_OPS, G.g2_to_device))
+        fp2 = group == "g2"
+        ops, to_dev = ((G.LAZY_FP2_OPS, G.g2_to_device) if fp2
+                       else (G.LAZY_FP_OPS, G.g1_to_device))
         pool, _ = _ladder_rows(group, 256, rng)
         pool = [p for p in pool if p is not None]
         rows_out = []
@@ -1130,10 +1265,21 @@ def phase_ladder_crossover(ctx):
             bits = torch.from_numpy(F.bits_batch([rng.getrandbits(128) for _ in pts],
                                                  LADDER_BITS)).to(dev)
             base_inf = torch.zeros(rows, dtype=torch.bool, device=dev)
-            row = {"rows": rows}
+            row = {"rows": rows, "k": ladder_lazy.window_k(rows, fp2)}
             for name, fn in (("window", G.scalar_mul_lazy_window), ("bitwise", G.scalar_mul_lazy)):
                 row[f"{name}_ms"] = event_ms_per_launch(
                     torch, lambda: fn(ops, pt, bits, base_inf), calls=3)
+            want = G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
+            for k in ladder_lazy.KS:
+                def run_k():
+                    return ladder_lazy.ladder_window_k(pt, bits, base_inf, fp2, k)
+
+                got = run_k()
+                if not (all(torch.equal(x, y) for x, y in zip(got[0], want[0]))
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"{group} window kernel at K = {k} differs from "
+                                         f"K = {row['k']} at {rows} rows")
+                row[f"window_k{k}_ms"] = event_ms_per_launch(torch, run_k, calls=3)
             row["ratio"] = row["window_ms"] / row["bitwise_ms"]
             rows_out.append(row)
         table[group] = rows_out
@@ -1148,7 +1294,10 @@ def phase_ladder_crossover(ctx):
     if upto < CROSSOVER_ROWS[-1]:
         raise AssertionError(f"the bitwise ladder is the faster above {upto} rows: "
                              f"{table}")
-    return {"by_group": table, "window_faster_up_to_rows": upto, "smi": ctx["smi"]}
+    return {"by_group": table, "window_faster_up_to_rows": upto,
+            "window_info": {g: {k: ladder_lazy.window_info(k, g == "g2") for k in ladder_lazy.KS}
+                            for g in ("g1", "g2")},
+            "smi": ctx["smi"]}
 
 
 def _ladder_launch_counts():
@@ -1389,6 +1538,7 @@ def phase_kernels(ctx):
                 "event_ms_per_launch": {f"{g}_{r}": x["event_ms_per_launch"]
                                         for (g, r), x in zip(shapes, got)},
                 "share_of_bound": bms / sum(x["event_ms_per_launch"] for x in got),
+                "k": {f"{g}_{r}": x["k"] for (g, r), x in zip(shapes, got)},
                 "shape": " + ".join(f"{g.upper()} {r} rows" for g, r in shapes)
                          + f", {LADDER_BITS} bits"}
 
@@ -1466,6 +1616,19 @@ def phase_kernels(ctx):
     return {"kernels": kernels}
 
 
+def _phase_arg(argv, names):
+    """``--phases a,b``: run only those phases (``build`` first), with no
+    ``kernels`` line; no arguments: every phase."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases name,name,...]")
+    only = set(argv[1].split(","))
+    if only - set(names):
+        raise SystemExit(f"unknown phases {sorted(only - set(names))}; phases: {names}")
+    return only | {"build"}
+
+
 def main() -> int:
     try:
         import torch
@@ -1499,15 +1662,19 @@ def main() -> int:
     # shard bytes of the epochs' ciphertexts
     ctx["leaf_bytes"] = _frame_shard_len([bytes(CIPHERTEXT_BYTES)], N_NODES - 2 * 21)
     ctx["leaf_bytes_large"] = _frame_shard_len([bytes(CIPHERTEXT_BYTES)], N_LARGE - 2 * F_LARGE)
-    phases = [("build", phase_build), ("kernel_fp_mul_lazy", phase_kernel_fp),
+    phases = [("build", phase_build), ("kernel_field", phase_kernel_field),
+              ("kernel_fp_mul_lazy", phase_kernel_fp),
               ("kernel_sha3", phase_kernel_sha3), ("kernel_ladder", phase_kernel_ladder),
               ("kernel_ladder_window", phase_kernel_ladder_window),
               ("ladder_crossover", phase_ladder_crossover),
               ("epoch", phase_epoch), ("profile", phase_profile),
               ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
               ("coin256", phase_coin256), ("dkg256", phase_dkg256)]
+    only = _phase_arg(sys.argv[1:], [n for n, _ in phases])
     ok = True
     for name, fn in phases:
+        if only and name not in only:
+            continue
         t0 = time.perf_counter()
         try:
             res = fn(ctx)
@@ -1520,7 +1687,8 @@ def main() -> int:
                 break
     if not ok:
         return 1
-    emit(phase_kernels(ctx))
+    if not only:
+        emit(phase_kernels(ctx))
     print(ctx["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

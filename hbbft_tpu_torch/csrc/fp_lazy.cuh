@@ -1,4 +1,5 @@
-// The lazy BLS12-381 field (Fp) as warp-cooperative device functions.
+// The lazy BLS12-381 field (Fp) as warp-cooperative device functions, K
+// field elements a warp.
 //
 // Replaces, inside the kernels that include it: hbbft_tpu/ops/pallas_fp.py
 // :: mul_lazy_cols (the body of the Pallas kernel fp_mul_lazy_pallas) and
@@ -6,36 +7,52 @@
 // (hbbft_tpu_torch/ops/fp381.py).  Every function computes the plain
 // version's exact function of its operands, so every digit matches.
 //
-// Layout: one warp holds one field element, one 13-bit digit a lane.  Lane
-// l < 30 holds digit l; lanes 30 and 31 hold 0 between operations (inside
-// one they may hold anything that no lane < 30 reads).  The operands of a
-// product are rows of 32 digits in shared memory (16-byte aligned), so a
-// lane reads any digit directly.  A product's 61 digits sit two a lane:
-// lane l holds t[l] ("lo") and t[32 + l] ("hi").
+// Layout (Lanes<K>, K in {1, 2, 4}): a warp holds K field elements, G =
+// 32/K lanes each; lane j of group g holds digits Kj .. Kj + K − 1 of
+// element g ("chunk" j), so an element has 32 digit positions: digits 0..29
+// and two spare positions, 30 and 31, that hold 0 between operations.  In
+// shared memory an element is a row of 32 words and the K elements of a
+// warp are K consecutive rows (a "slot row"); chunk c of row g sits at
+// position c ^ g, so the K groups' chunks of one index lie in different
+// banks.  Inside a lane, carries run in registers; a carry crosses lanes
+// once a round of three passes.
 //
 // Carries: the plain rough carry is three parallel passes that drop the top
 // digit's carry, so after three passes digit p is a function of the old
-// digits p-3 .. p alone (carry3).  A lane gathers that window in one round
-// of independent shuffles and runs the three passes locally: one shuffle
-// latency instead of three.  The squeeze (three passes, then four rounds of
-// "fold the spare digit 30 back through row 0, three passes") does the
-// same; every lane also gathers digits 27..29 and computes digit 30 itself,
-// so a round is one round of six shuffles and the squeeze five rounds, not
-// nineteen dependent shuffles.
+// digits p−3 .. p alone.  A lane gathers the three digits below its chunk in
+// one round of independent shuffles and runs the three passes over its
+// window locally (carry_window).  The squeeze (three passes over 31 digits,
+// then four rounds of "fold the spare digit 30 back through row 0, three
+// passes") does so five times; digit 30 is computed once a group, by the
+// lane that holds it, and broadcast in the same exchange that brings the
+// next round's window.
+//
+// The product a·b (K > 1): a 32-position cyclic convolution,
+// output-stationary.  At step s (0 .. G−1) lane j multiplies chunk
+// (j − s) mod G of a (one vector load) by the 2K − 1 digits of b around Ks
+// (chunk s, a broadcast, and chunk s − 1 from the step before): K²
+// multiply-adds into its K digit sums.  A term lands at position Kj + m
+// (the low half of the 61-digit product) while s ≤ j and at 32 + Kj + m
+// (the high half) after, so the lane snapshots its sums into the low half
+// at s = j and the high half is the final sum less it; at s = 0 the terms
+// below the chunk wrap to the high half, where only a·b[29] is not zero
+// (K = 4).  An element so costs 1 024 multiply-adds, of which the product
+// needs 900.  At K = 1, where that loop is one multiply-add a step behind
+// two loads, lane l sums a[i]·b[l − i] and a[i]·b[l + 32 − i] from a
+// zero-padded copy of b instead (two positions a lane, in four partial
+// sums each).  Then the three passes over the 64 positions (61 .. 63 never
+// read), the fold of digits 30 .. 60 against the residue rows (the high
+// digits broadcast through a scratch row of the warp's own in shared
+// memory), the squeeze.
 //
 // int32 never wraps: every digit of an operand lies in [0, 2^13], so every
-// product is < 2^26 and every digit sum (30 products in the convolution,
-// 31 in the fold) stays < 2^31, as in the reference.  The window computes
-// the very intermediate values of the passes it replaces.
+// product is ≤ 2^26; a lane's convolution sum holds the terms of one low
+// and one high position, at most 30, and the fold at most 31, so every sum
+// stays < 2^31, as in the reference.  The windows compute the very
+// intermediate values of the passes they replace.
 //
-// Each lane keeps its column of the residue rows 2^(13 j) mod p
-// (j = 30..60), of the sub constant and its window masks in registers
-// (FieldLane).  An SM sub-partition issues int32 instructions at half a
-// warp a clock, so the functions spend instructions sparingly: the window
-// masks are ANDs, the product reads b from a zero-padded copy without a
-// branch on i ≤ l, and its sums run as four partial sums.  Every 32 lanes
-// of a warp call each function together (the shuffles use the full mask);
-// callers keep every branch warp-uniform.
+// Every 32 lanes of a warp call each function together (the shuffles use
+// the full mask); callers keep every branch warp-uniform.
 
 #pragma once
 
@@ -47,148 +64,320 @@ constexpr int NL = 30;
 constexpr int kBits = 13;
 constexpr int32_t kMask = (1 << kBits) - 1;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowWords = 32;      // one element's row in shared memory
+constexpr int kScratchRow = 40;    // fold scratch a group: t30, t31, 2 spare, t32 .. t63
+constexpr int kFoldRows = NL + 1;  // residue rows 2^(13 (NL + j)) mod p, j = 0 .. 30
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
-// Lane l's column of the (NL + 1, NL) residue rows (fold[j]: digit l of
-// 2^(13 (NL + j)) mod p) and of the sub constant (-2 (2^390 - 1) mod p);
-// 0 on lanes 30 and 31.
-struct FieldLane {
-  int32_t fold[NL + 1];
-  int32_t subc;
-  int32_t below[4];  // below[k]: all ones where lane l ≥ k (digit l − k exists), else 0
+// Words of a group's scratch: the fold's row, and at K = 1 the product's
+// zero-padded copy of b (64 pairs), whose padding zero_scratch clears once
+// per kernel
+template <int K>
+__host__ __device__ constexpr int scratch_words() {
+  return kScratchRow + (K == 1 ? 128 : 0);
+}
+
+template <int K>
+__device__ __forceinline__ void zero_scratch(int32_t* scratch) {
+  if constexpr (K == 1) {
+    for (int i = lane_id(); i < scratch_words<1>(); i += 32) scratch[i] = 0;
+    __syncwarp();
+  }
+}
+
+template <int K>
+struct Lanes {
+  static_assert(K == 1 || K == 2 || K == 4, "K elements a warp: 1, 2 or 4");
+  static constexpr int G = 32 / K;  // lanes an element
+  __device__ static int group() { return lane_id() / G; }
+  __device__ static int chunk() { return lane_id() & (G - 1); }
+  // word offset, in its row, of chunk c of a row of group g
+  __device__ static int at(int c, int g) { return K * (c ^ g); }
 };
 
+template <int K>
+struct Vec;
+template <>
+struct Vec<1> { using T = int32_t; };
+template <>
+struct Vec<2> { using T = int2; };
+template <>
+struct Vec<4> { using T = int4; };
+
+template <int K>
+__device__ __forceinline__ void ld(const int32_t* p, int32_t (&v)[K]) {
+  const typename Vec<K>::T x = *reinterpret_cast<const typename Vec<K>::T*>(p);
+  if constexpr (K == 1) {
+    v[0] = x;
+  } else if constexpr (K == 2) {
+    v[0] = x.x; v[1] = x.y;
+  } else {
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void st(int32_t* p, const int32_t (&v)[K]) {
+  typename Vec<K>::T x;
+  if constexpr (K == 1) {
+    x = v[0];
+  } else if constexpr (K == 2) {
+    x = make_int2(v[0], v[1]);
+  } else {
+    x = make_int4(v[0], v[1], v[2], v[3]);
+  }
+  *reinterpret_cast<typename Vec<K>::T*>(p) = x;
+}
+
+// This lane's constants: its digits' column of residue row 0 (the squeeze's
+// fold), of 2·MASK + the sub constant, the masks of digits < 30 and of
+// "digit Kj − d exists", and the residue rows themselves — in registers for
+// K = 1, in shared memory (kFoldRows rows of 32 words, digits 30 and 31
+// zero) for K > 1.
+template <int K>
+struct FieldLane {
+  int32_t row0[K];
+  int32_t row0w[4];  // row0[d]: residue row 0 at position Kj − d, 0 where it does not exist
+  int32_t subk[K];   // 2·MASK + sub constant at digits < 30, else 0
+  int32_t keep[K];   // all ones at digits < 30, else 0
+  int32_t below[4];
+  int32_t fold[K == 1 ? kFoldRows : 1];
+  const int32_t* fold_s;
+};
+
+// The residue rows into shared memory (K > 1), by every thread of the
+// block; the caller then barriers before load_field.
+__device__ __forceinline__ void stage_fold(int32_t* fold_s, const int32_t* __restrict__ fold) {
+  for (int i = threadIdx.x; i < kFoldRows * kRowWords; i += blockDim.x) {
+    const int j = i / kRowWords, p = i % kRowWords;
+    fold_s[i] = p < NL ? fold[j * NL + p] : 0;
+  }
+}
+
 // subc == nullptr: zeros (a kernel that never subtracts)
-__device__ __forceinline__ void load_field(FieldLane& f, const int32_t* __restrict__ fold,
-                                           const int32_t* __restrict__ subc) {
-  const int l = lane_id();
+template <int K>
+__device__ __forceinline__ void load_field(FieldLane<K>& f, const int32_t* __restrict__ fold,
+                                           const int32_t* __restrict__ subc,
+                                           const int32_t* fold_s) {
+  const int p0 = K * Lanes<K>::chunk();
 #pragma unroll
-  for (int j = 0; j <= NL; ++j) f.fold[j] = l < NL ? fold[j * NL + l] : 0;
-  f.subc = (subc != nullptr && l < NL) ? subc[l] : 0;
+  for (int m = 0; m < K; ++m) {
+    const int p = p0 + m;
+    f.row0[m] = p < NL ? fold[p] : 0;
+    f.subk[m] = p < NL ? 2 * kMask + (subc != nullptr ? subc[p] : 0) : 0;
+    f.keep[m] = p < NL ? -1 : 0;
+  }
 #pragma unroll
-  for (int k = 0; k < 4; ++k) f.below[k] = l >= k ? -1 : 0;
+  for (int d = 0; d < 4; ++d) {
+    f.below[d] = p0 >= d ? -1 : 0;
+    f.row0w[d] = (d > 0 && p0 >= d && p0 - d < NL) ? fold[p0 - d] : 0;
+  }
+  if constexpr (K == 1) {
+#pragma unroll
+    for (int j = 0; j < kFoldRows; ++j) f.fold[j] = p0 < NL ? fold[j * NL + p0] : 0;
+  }
+  f.fold_s = fold_s;
 }
 
-// Digit p after three rough passes, from the old digits x0..x3 at
-// positions p-3 .. p (0 below position 0).  Digits are never negative, so
-// >> is the plain version's shift.
-__device__ __forceinline__ int32_t carry3(int32_t x0, int32_t x1, int32_t x2, int32_t x3) {
-  const int32_t a1 = (x1 & kMask) + (x0 >> kBits);  // p-2, pass 1
-  const int32_t b1 = (x2 & kMask) + (x1 >> kBits);  // p-1, pass 1
-  const int32_t c1 = (x3 & kMask) + (x2 >> kBits);  // p,   pass 1
-  const int32_t b2 = (b1 & kMask) + (a1 >> kBits);  // p-1, pass 2
-  const int32_t c2 = (c1 & kMask) + (b1 >> kBits);  // p,   pass 2
-  return (c2 & kMask) + (b2 >> kBits);              // p,   pass 3
+// Three rough passes over this lane's digits v[0 .. K) given the three
+// digits below them, w[d] at position Kj − d (0 where it does not exist):
+// pass 1 over positions Kj−2 .. Kj+K−1, pass 2 from Kj−1, pass 3 from Kj.
+// Digits are never negative, so >> is the plain version's shift.
+template <int K>
+__device__ __forceinline__ void carry_window(const int32_t (&w)[4], int32_t (&v)[K]) {
+  int32_t x[K + 3] = {w[3], w[2], w[1]};
+#pragma unroll
+  for (int m = 0; m < K; ++m) x[3 + m] = v[m];
+#pragma unroll
+  for (int pass = 1; pass <= 3; ++pass) {
+#pragma unroll
+    for (int q = K + 2; q >= pass; --q) x[q] = (x[q] & kMask) + (x[q - 1] >> kBits);
+  }
+#pragma unroll
+  for (int m = 0; m < K; ++m) v[m] = x[3 + m];
 }
 
-// Digits < 2^31 on lanes 0..29 → lazy digits on lanes 0..29, 0 on lanes 30
-// and 31: three passes over the 31 digits (digit 30 the spare), then four
-// times: fold the spare digit back through row 0, three passes.  The spare
-// digit left by the last passes is dropped, as the plain version returns
-// only the low NL digits.  Digit 30 enters every round as 0, so its window
-// is (27, 28, 29, 0); what lanes 30 and 31 hold on the way is never read by
-// lanes 0..29 (windows look down, the spare digit is computed from 27..29).
-__device__ __forceinline__ int32_t squeeze(int32_t v, const FieldLane& f) {
-  const int l = lane_id();
+// The three digits below this lane's chunk, from the lanes below in the
+// group (0 below digit 0).
+template <int K>
+__device__ __forceinline__ void window_below(const int32_t (&v)[K], const FieldLane<K>& f,
+                                             int32_t (&w)[4]) {
+  constexpr int G = Lanes<K>::G;
+#pragma unroll
+  for (int d = 1; d <= 3; ++d) {
+    const int off = (d + K - 1) / K;  // the lane that holds digit Kj − d, below
+    w[d] = __shfl_up_sync(kFull, v[K * off - d], off, G) & f.below[d];
+  }
+}
+
+// Digits < 2^31 at positions 0..29, 0 at 30 and 31 → lazy digits at 0..29,
+// 0 at 30 and 31: three passes over the 31 digits (digit 30 the spare), then
+// four times: fold the spare digit back through row 0, three passes.  The
+// spare digit left by the last passes is dropped, as the plain version
+// returns only the low NL digits.  Position 31 takes the spare digit's
+// carries, which nothing reads, and is cleared with it.  A round's one
+// exchange brings the spare digit and the window of the next passes (the
+// digits below, after this round's passes) together, and the lane folds
+// both, so a round waits on one shuffle.
+template <int K>
+__device__ __forceinline__ void squeeze(int32_t (&v)[K], const FieldLane<K>& f) {
+  constexpr int G = Lanes<K>::G;
+  int32_t w[4];
+  window_below<K>(v, f, w);
 #pragma unroll
   for (int round = 0; round < 5; ++round) {
-    const int32_t w1 = __shfl_up_sync(kFull, v, 1);
-    const int32_t w2 = __shfl_up_sync(kFull, v, 2);
-    const int32_t w3 = __shfl_up_sync(kFull, v, 3);
-    const int32_t t27 = __shfl_sync(kFull, v, 27);
-    const int32_t t28 = __shfl_sync(kFull, v, 28);
-    const int32_t t29 = __shfl_sync(kFull, v, 29);
-    const int32_t y = carry3(w3 & f.below[3], w2 & f.below[2], w1 & f.below[1], v);
-    if (round == 4) return l < NL ? y : 0;
-    const int32_t top = carry3(t27, t28, t29, 0);
-    v = y + top * f.fold[0];
+    carry_window<K>(w, v);
+    if (round == 4) break;
+    const int32_t top = __shfl_sync(kFull, v[NL % K], NL / K, G);
+    window_below<K>(v, f, w);
+#pragma unroll
+    for (int m = 0; m < K; ++m) v[m] = (v[m] & f.keep[m]) + top * f.row0[m];
+#pragma unroll
+    for (int d = 1; d <= 3; ++d) w[d] += top * f.row0w[d];
   }
-  return 0;  // not reached
+#pragma unroll
+  for (int m = 0; m < K; ++m) v[m] &= f.keep[m];
 }
 
-// a·b before its squeeze: the 30×30 convolution, three rough passes over
-// the 61 digits (the carry out of digit 60 dropped), the fold of digits
-// 30..60 against the residue rows.  a, b: shared rows of 32 digits
-// (16-byte aligned, digits 30 and 31 zero); scratch: 192 ints of this
-// warp's own in shared memory (16-byte aligned), of which 64..191 hold the
-// zero-padded copy of b (zero_scratch once per kernel).
-__device__ __forceinline__ int32_t fp_mul_unsqueezed(const int32_t* a, const int32_t* b,
-                                                     int32_t* scratch, const FieldLane& f) {
-  const int l = lane_id();
-  // b padded with zeros: bz[32 + j] = b[j], 0 elsewhere (j < 0 or j ≥ 32),
-  // stored as pairs pz[k] = (bz[k], bz[k + 32]), so that at step i lane l
-  // reads b[l − i] for t[l] and b[l + 32 − i] for t[l + 32] in one 8-byte
-  // load, with no branch on i ≤ l
-  int2* pz = reinterpret_cast<int2*>(scratch + 64);
+// a·b before its squeeze (see the header comment): a, b are this group's
+// rows in shared memory (32 words, 16-byte aligned, chunks at Lanes::at,
+// digits 30 and 31 zero); scratch: this group's scratch_words<K>() words
+// of the warp's own (16-byte aligned; zero_scratch once per kernel).
+// Result: this lane's digits, 0 at 30 and 31.
+template <int K>
+__device__ __forceinline__ void fp_mul_unsqueezed(const int32_t* a, const int32_t* b,
+                                                  int32_t* scratch, const FieldLane<K>& f,
+                                                  int32_t (&out)[K]) {
+  using L = Lanes<K>;
+  constexpr int G = L::G;
+  const int g = L::group(), j = L::chunk();
+  int32_t lo[K], hi[K];
+  if constexpr (K == 1) {
+    // one element a warp: b padded with zeros, bz[32 + i] = b[i], 0 below 32
+    // and from 64, stored as pairs pz[k] = (bz[k], bz[k + 32]), so that at
+    // step i lane l reads b[l − i] for t[l] and b[l + 32 − i] for t[l + 32]
+    // in one 8-byte load, with no branch on i ≤ l; four partial sums a digit
+    int2* pz = reinterpret_cast<int2*>(scratch + kScratchRow);
+    __syncwarp();  // the previous product's reads of scratch are done
+    const int32_t bl = b[j];
+    pz[j].y = bl;
+    pz[32 + j].x = bl;
+    __syncwarp();
+    int32_t lo4[4] = {0, 0, 0, 0}, hi4[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int4 a4 = reinterpret_cast<const int4*>(a)[q];  // broadcast
+      const int32_t av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = 4 * q + k;
+        if (i < NL) {
+          const int2 bb = pz[32 + j - i];
+          lo4[k] += av[k] * bb.x;
+          hi4[k] += av[k] * bb.y;
+        }
+      }
+    }
+    lo[0] = (lo4[0] + lo4[1]) + (lo4[2] + lo4[3]);
+    hi[0] = (hi4[0] + hi4[1]) + (hi4[2] + hi4[3]);
+  } else {
+    int32_t acc[K], wrap[K];
+#pragma unroll
+    for (int m = 0; m < K; ++m) acc[m] = lo[m] = wrap[m] = 0;
+    int32_t bprev[K];
+    ld<K>(b + L::at(G - 1, g), bprev);  // chunk −1 ≡ G − 1 at s = 0
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      int32_t ach[K], bcur[K];
+      ld<K>(a + L::at((j - s) & (G - 1), g), ach);
+      ld<K>(b + L::at(s, g), bcur);  // a broadcast within the group
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        int32_t step = 0;  // the step's terms apart, so the sum's chain is one add a step
+#pragma unroll
+        for (int r = 0; r < K; ++r) {
+          // b digit Ks + m − r (both indices kept in range for the compiler)
+          const int32_t bv = m >= r ? bcur[(m - r) & (K - 1)] : bprev[(K + m - r) & (K - 1)];
+          if (s > 0 || m >= r) {
+            step += ach[r] * bv;
+          } else if (32 + m - r < NL) {  // the wrapped term, high half
+            wrap[m] += ach[r] * bv;
+          }
+        }
+        acc[m] += step;
+      }
+      const bool last_low = j == s;
+#pragma unroll
+      for (int m = 0; m < K; ++m) lo[m] = last_low ? acc[m] : lo[m];
+#pragma unroll
+      for (int m = 0; m < K; ++m) bprev[m] = bcur[m];
+    }
+#pragma unroll
+    for (int m = 0; m < K; ++m) hi[m] = acc[m] - lo[m] + wrap[m];
+  }
+
+  // three passes over the 64 positions: the low half's window is the three
+  // low digits below; the high half's the high digits below, or for its
+  // first digits the low half's top (one rotating shuffle of each half)
+  {
+    int32_t wl[4], wh[4];
+#pragma unroll
+    for (int d = 1; d <= 3; ++d) {
+      const int off = (d + K - 1) / K, dj = K * off - d;
+      const int src = (j - off) & (G - 1);
+      const int32_t rl = __shfl_sync(kFull, lo[dj], src, G);
+      const int32_t rh = __shfl_sync(kFull, hi[dj], src, G);
+      wl[d] = rl & f.below[d];
+      wh[d] = f.below[d] ? rh : rl;
+    }
+    carry_window<K>(wl, lo);
+    carry_window<K>(wh, hi);
+  }
+
+  // fold: digit p += Σ_j t[30 + j]·row_j[p], t[30 .. 60] broadcast from the
+  // scratch row (t30, t31 at words 0, 1; t[32 + i] at word 4 + i)
   __syncwarp();  // the previous product's reads of scratch are done
-  const int32_t bl = b[l];
-  pz[l].y = bl;
-  pz[32 + l].x = bl;
+  st<K>(scratch + 4 + K * j, hi);
+#pragma unroll
+  for (int m = 0; m < K; ++m) {
+    if (K * j + m >= NL) scratch[K * j + m - NL] = lo[m];
+  }
   __syncwarp();
-  // four partial sums a digit, so the multiply-adds do not wait on each other
-  int32_t lo4[4] = {0, 0, 0, 0}, hi4[4] = {0, 0, 0, 0};
+  constexpr int P = K == 1 ? 4 : 2;  // partial sums a digit, for the multiply-adds' latency
+  int32_t sum[P][K];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+#pragma unroll
+    for (int m = 0; m < K; ++m) sum[q][m] = q == 0 ? (lo[m] & f.keep[m]) : 0;
+  }
+  const int2 t3031 = *reinterpret_cast<const int2*>(scratch);
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
-    const int4 a4 = reinterpret_cast<const int4*>(a)[q];  // broadcast
-    const int32_t av[4] = {a4.x, a4.y, a4.z, a4.w};
+    const int4 h4 = *reinterpret_cast<const int4*>(scratch + 4 + 4 * q);
+    const int32_t tv[6] = {t3031.x, t3031.y, h4.x, h4.y, h4.z, h4.w};
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int i = 4 * q + k;
-      if (i < NL) {
-        const int2 bb = pz[32 + l - i];
-        lo4[k] += av[k] * bb.x;
-        hi4[k] += av[k] * bb.y;
+    for (int u = q == 0 ? 0 : 2; u < 6; ++u) {
+      const int jj = q == 0 ? u : 4 * q + u;  // t[30 + jj]
+      if (jj < kFoldRows) {
+        int32_t row[K];
+        if constexpr (K == 1) {
+          row[0] = f.fold[jj];
+        } else {
+          ld<K>(f.fold_s + jj * kRowWords + K * j, row);
+        }
+#pragma unroll
+        for (int m = 0; m < K; ++m) sum[jj % P][m] += tv[u] * row[m];
       }
     }
   }
-  int32_t lo = (lo4[0] + lo4[1]) + (lo4[2] + lo4[3]);
-  int32_t hi = (hi4[0] + hi4[1]) + (hi4[2] + hi4[3]);
-  // three passes, windowed: position l's window is lo[l-3 .. l-1] (0 below
-  // 0); position 32 + l's is hi[l-k], or lo[32 + l - k] where l < k — one
-  // rotating shuffle of each half gives both.  hi on lanes 29..31
-  // (positions 61..63, which do not exist) is never read.
-  int32_t wl[3], wh[3];
 #pragma unroll
-  for (int k = 1; k <= 3; ++k) {
-    const int32_t rl = __shfl_sync(kFull, lo, (l - k) & 31);
-    const int32_t rh = __shfl_sync(kFull, hi, (l - k) & 31);
-    wl[k - 1] = rl & f.below[k];
-    wh[k - 1] = f.below[k] ? rh : rl;
+  for (int m = 0; m < K; ++m) {
+    int32_t x = 0;
+#pragma unroll
+    for (int q = 0; q < P; ++q) x += sum[q][m];
+    out[m] = x;
   }
-  lo = carry3(wl[2], wl[1], wl[0], lo);
-  hi = carry3(wh[2], wh[1], wh[0], hi);
-  // fold: digit l += Σ_j t[30 + j]·row_j[l], t[30..60] read back as
-  // broadcasts from the warp's scratch, in four partial sums
-  scratch[l] = lo;
-  scratch[32 + l] = hi;
-  __syncwarp();
-  const int2 t30 = *reinterpret_cast<const int2*>(scratch + 30);
-  int32_t acc[4] = {lo, t30.x * f.fold[0], t30.y * f.fold[1], 0};
-#pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    const int4 h4 = reinterpret_cast<const int4*>(scratch + 32)[q];
-    const int32_t hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int j = 4 * q + k;  // t[32 + j]
-      if (j <= 28) acc[k] += hv[k] * f.fold[2 + j];
-    }
-  }
-  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
-}
-
-// Zero this warp's scratch (the padding of fp_mul_unsqueezed's copy of b)
-__device__ __forceinline__ void zero_scratch(int32_t* scratch) {
-  for (int i = lane_id(); i < 192; i += 32) scratch[i] = 0;
-  __syncwarp();
-}
-
-// a − b (mod p) before its squeeze, lazy: a + (2·MASK − b) + sub constant,
-// digitwise (a + b needs no helper; lanes 30 and 31 are not read by the
-// squeeze)
-__device__ __forceinline__ int32_t fp_sub_unsqueezed(int32_t a, int32_t b, const FieldLane& f) {
-  return a + (2 * kMask - b) + f.subc;
 }
 
 }  // namespace hb

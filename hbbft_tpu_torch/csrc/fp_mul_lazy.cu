@@ -11,12 +11,12 @@
 // it is bound by operations, and at the few hundred rows of a ladder by
 // launch latency.
 //
-// Design: the multiply is fp_lazy.cuh's warp-cooperative product — lane l
-// holds digit l, the operands sit in shared memory, the carry passes run on
-// shuffled windows — which the whole-ladder kernel (ladder_lazy.cu) runs in
-// every step; this kernel runs it on one row per warp, so it is the one
-// implementation of the lazy multiply in CUDA and is held digit for digit
-// against the plain version on its own.  Blocks of 4 warps (4 rows).
+// Design: the multiply is fp_lazy.cuh's warp-cooperative product at one
+// element a warp (K = 1: lane l holds digit l, the operands sit in shared
+// memory, the carry passes run on shuffled windows), the one implementation
+// of the lazy multiply in CUDA, which the ladder kernels run at K rows a
+// warp; this kernel runs it on one row per warp and is held digit for
+// digit against the plain version on its own.  Blocks of 4 warps (4 rows).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,20 +32,22 @@ fp_mul_lazy_kernel(const int32_t* __restrict__ a,
                    const int32_t* __restrict__ b,
                    const int32_t* __restrict__ fold,
                    int32_t* __restrict__ out, int R) {
-  __shared__ __align__(16) int32_t s_ab[kWarps][2][32];
-  __shared__ __align__(16) int32_t s_scratch[kWarps][192];
-  hb::FieldLane f;
-  hb::load_field(f, fold, nullptr);
+  __shared__ __align__(16) int32_t s_ab[kWarps][2][hb::kRowWords];
+  __shared__ __align__(16) int32_t s_scratch[kWarps][hb::scratch_words<1>()];
+  hb::FieldLane<1> f;
+  hb::load_field<1>(f, fold, nullptr, nullptr);
   const int w = threadIdx.x >> 5;
-  hb::zero_scratch(s_scratch[w]);
+  hb::zero_scratch<1>(s_scratch[w]);
   const int r = blockIdx.x * kWarps + w;
   if (r >= R) return;  // warp-uniform
   const int l = hb::lane_id();
   s_ab[w][0][l] = l < hb::NL ? a[l * R + r] : 0;
   s_ab[w][1][l] = l < hb::NL ? b[l * R + r] : 0;
   __syncwarp();
-  const int32_t o = hb::squeeze(hb::fp_mul_unsqueezed(s_ab[w][0], s_ab[w][1], s_scratch[w], f), f);
-  if (l < hb::NL) out[l * R + r] = o;
+  int32_t o[1];
+  hb::fp_mul_unsqueezed<1>(s_ab[w][0], s_ab[w][1], s_scratch[w], f, o);
+  hb::squeeze<1>(o, f);
+  if (l < hb::NL) out[l * R + r] = o[0];
 }
 
 }  // namespace

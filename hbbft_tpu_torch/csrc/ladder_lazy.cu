@@ -21,17 +21,17 @@
 //
 // Design.  A step is a DAG of lazy Fp operations (47 for G1, 189 for G2)
 // whose longest chain is a fifth (G2) to two fifths (G1) of its work.  One
-// block of 3 (G1) or 8 (G2) warps runs one row: every value of the step has
-// a 32-digit slot in shared memory and a ready flag, each warp walks its
-// own list of operations from the static schedule in ladder_schedule.h
-// (generated by ops/ladder_schedule.py: list scheduling, longest path
-// first), waits for the flags of the operands other warps compute,
-// computes, stores and raises its destination's flag; the step ends at a
-// block barrier (ladder_steps.cuh, shared with ladder_window.cu).  The
-// epoch's 256 G1 and 128 G2 rows so become 768 and 1024 warps on the
-// card's 528 schedulers.  Inside an operation the carries run on shuffled
-// windows (fp_lazy.cuh).  Operations of the base point alone (Z2², the
-// Karatsuba sums of base coordinates) run once, in a prologue.
+// block of 3 (G1) or 8 (G2) warps runs one row, through the step machinery
+// the windowed kernel runs K rows on (ladder_steps.cuh, at K = 1): each
+// warp walks its own list of operations from the static schedule in
+// ladder_schedule.h (generated by ops/ladder_schedule.py: list scheduling,
+// longest path first), waits for the flags of the operands other warps
+// compute, computes, stores and raises its destination's flag; the step
+// reads one accumulator set and writes the other and ends at a block
+// barrier.  Operations of the base point alone (Z2², the Karatsuba sums of
+// base coordinates) run once, in a prologue.  The windowed kernel is the
+// faster at every batch size measured, so no path runs this one; it stays
+// held against its plain version.
 //
 // Constant time: every step runs the same operations, the addition
 // whatever the bit, as the reference does; the bit and the inf flags are
@@ -48,8 +48,9 @@
 
 namespace {
 
-using hb::NL;
 using namespace hb_ladder;
+
+constexpr int K = 1;  // one row a block
 
 template <class S, bool kFp2>
 __global__ void __launch_bounds__(S::kWarps * 32)
@@ -60,38 +61,43 @@ ladder_lazy_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ p
                    int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                    int32_t* __restrict__ oz, uint8_t* __restrict__ out_inf,
                    int R, int nbits) {
-  __shared__ __align__(16) int32_t sv[S::kSlots][32];
-  __shared__ __align__(16) int32_t scratch[S::kWarps][192];
-  __shared__ int flag[S::kSlots];
+  __shared__ __align__(16) int32_t rows[S::kSlots * hb::kRowWords];  // A, B, temporaries
+  __shared__ __align__(16) int32_t base[S::kEntry * hb::kRowWords];
+  __shared__ __align__(16) int32_t scratch[S::kWarps][hb::scratch_words<K>()];
+  __shared__ int flag[S::kFlags];
 
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x;  // one row per block
-  hb::FieldLane f;
-  hb::load_field(f, fold, subc);
-  hb::zero_scratch(scratch[warp]);
-
-  // slots: acc (zero), base, then the rest; flags 0
-  for (int i = threadIdx.x; i < S::kSlots; i += blockDim.x) flag[i] = 0;
-  load_row<S, kFp2>(sv, warp, px, py, pz, R, r);
+  for (int i = threadIdx.x; i < S::kFlags; i += blockDim.x) flag[i] = 0;
+  hb::zero_scratch<K>(scratch[warp]);
+  load_point<S, K, kFp2>(base, warp, px, py, pz, R, r);
+  zero_rows<S, K>(rows, S::kAcc, warp);  // A: acc = ∞
   __syncthreads();
-  if (warp == 0) {  // the base point's own operations, once
-    run_prologue<kFp2, S::kPrologue>(sv, scratch[0], f);
-  }
-  __syncthreads();
+  hb::FieldLane<K> f;
+  hb::load_field<K>(f, fold, subc, nullptr);
 
   const bool binf = base_inf[r] != 0;
   const int32_t* rbits = bits + static_cast<size_t>(r) * nbits;
   bool inf = true;
+  // phase 0: the base point's own operations, once (warp 0); then a step a
+  // bit, MSB first, reading one accumulator set and writing the other (one
+  // call of run_list: see ladder_steps.cuh)
 #pragma unroll 1
-  for (int i = nbits - 1, step = 1; i >= 0; --i, ++step) {  // MSB first
-    const bool bit = rbits[i] != 0;
-    run_table<kFp2, kStep>(warp, sv, scratch[warp], flag, f, bit, inf, binf, step);
+  for (int ph = 0; ph <= nbits; ++ph) {
+    const bool bit = ph > 0 && rbits[nbits - ph] != 0;
+    const int table_id = ph == 0 ? hb_sched::kPrologue
+                                 : ((ph & 1) ? hb_sched::kStepAB : hb_sched::kStepBA);
+    const int b0 = list_bound<kFp2>(table_id, warp, 0);
+    const int b1 = (ph > 0 || warp == 0) ? list_bound<kFp2>(table_id, warp, 1) : b0;
+    run_list<S, K, kFp2>(b0, b1, {rows, base, base + S::kAcc * hb::kRowWords}, scratch[warp],
+                         flag, f, bit, inf, binf, ph + 1);
     // acc = ∞: acc + base = base; base = ∞: stays acc
-    inf = bit ? (inf && binf) : inf;
+    if (ph > 0) inf = bit ? (inf && binf) : inf;
     __syncthreads();
   }
 
-  store_row<S, kFp2>(sv, warp, ox, oy, oz, R, r);
+  // nbits steps: the last wrote B if nbits is odd, else A
+  store_point<S, K, kFp2>(rows + (nbits & 1) * S::kAcc * hb::kRowWords, warp, ox, oy, oz, R, r);
   if (threadIdx.x == 0) out_inf[r] = inf ? 1 : 0;
 }
 

@@ -1,6 +1,6 @@
 // Whole 4-bit windowed lazy scalar-mul ladder for Hopper (sm_90a): one
 // launch runs every step of a batch of G1 or G2 ladders, one block of
-// several warps per row.
+// several warps for K rows.
 //
 // Replaces: hbbft_tpu/ops/gcurve.py :: scalar_mul_lazy_window (an XLA
 // program on the TPU: the table [P, 2P, …, 15P], then a jax.lax.fori_loop
@@ -11,26 +11,41 @@
 //
 // Inputs and outputs as in ladder_lazy.cu; nbits is a multiple of 4.
 //
-// Design.  The same block of 3 (G1) or 8 (G2) warps a row, the same slots,
-// flags and tables as the bitwise kernel (ladder_steps.cuh), and two more
-// tables over the same slot layout: dbl (a doubling of the accumulator)
-// and addp (the accumulator plus the base point); their results stay in
-// temporaries and are copied after a barrier.  A window
-//     acc ← 2·2·2·2·acc (+ T[idx] where idx ≠ 0)
-// is three dbl steps and then one step of the bitwise ladder whose base is
-// T[idx] and whose bit is idx ≠ 0: that step doubles, adds the base and
-// selects exactly as the reference's window body does.  So a table entry
-// holds what the bitwise kernel's base block holds, the coordinates and
-// the prologue's values (Z2², the Karatsuba sums), and before the step the
-// block copies entry idx into the base block.  The table is built in the
-// same slots before the windows: entry 2k by a dbl step from entry k,
-// entry 2k + 1 by an addp step from entry 2k, each entry's prologue on one
-// warp, the warps side by side.  The table lives in dynamic shared memory
-// after the slots: 15 entries × 4 (G1) or 14 (G2) rows of 32 digits.
+// What bounds it on this card: int32 operations (a G1 row does ~10^7 of
+// them on a few KB of state), issued by warps that wait on each other's
+// operands; at small batches the latency of a step's chain of operations.
+// The design spends fewer instructions on an element the more elements a
+// warp holds, shares every wait, barrier and table read among K rows, and
+// keeps the field's code in the binary once.
 //
-// Constant time: every window runs the same steps whatever its value, and
-// the entry's copy reads one row per lane's own bank whatever the index, so
-// neither a branch nor a bank conflict depends on the scalar.
+// Design.  A block of 3 (G1) or 8 (G2) warps runs K rows, each warp every
+// operation for the K rows at once (ladder_steps.cuh, the field of
+// fp_lazy.cuh); K = 4 from 512 rows, else 2 (G2 from 256 rows) or 1
+// (pick_k, as the card measured it).  The tables of the static schedule:
+// dbl (a doubling of the accumulator), dblpro (dbl and, beside it, the
+// prologue of the step's base block: Z2², the Karatsuba sums), addp (the
+// accumulator plus the base point) and step (the bitwise kernel's: double,
+// add the base, select).  Each step reads one accumulator set and writes
+// the other, so a window
+//     acc ← 2·2·2·2·acc (+ T[idx] where idx ≠ 0)
+// is dblpro A→B, dbl B→A, dbl A→B, and step B→A whose base is entry
+// idx − 1 of the row's own table, read in place: four steps, four
+// barriers, no copies.  A table entry holds the coordinates only (G2 rows
+// would not fit otherwise); the prologue's values of the window's entry go
+// to a block area of their own.  The table is built before the windows:
+// entry k − 1 (k = 2 .. 15) by a dbl step from entry k/2 − 1 or an addp
+// step from entry k − 2, with P and its prologue the base, the source
+// copied into A and the result from B.  Every step runs through one call
+// site of run_list (a loop over the phases), so the field's code is in the
+// binary once.  Shared memory: the two accumulator sets and the
+// temporaries (reused within a step, ladder_schedule.py), the 15 entries,
+// the prologue's values, the warps' fold scratch, the residue rows (K > 1)
+// and the flags.
+//
+// Constant time: every window runs the same steps whatever its value; the
+// entry is a row offset, and every lane reads its own chunk's banks
+// whatever the index, so neither a branch nor a bank conflict depends on
+// the scalar.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,46 +56,65 @@
 
 namespace {
 
-using hb::NL;
 using namespace hb_ladder;
 
 constexpr int kWindow = 4;
 constexpr int kEntries = (1 << kWindow) - 1;  // P … 15P
-constexpr int kScratch = 192;                 // fp_mul_unsqueezed's, per warp
+constexpr int kSmemPerSm = 233472;            // 228 KB, of which 1 KB a block is the system's
+constexpr int kSmemPerBlockReserved = 1024;
 
-template <class S>
-__host__ __device__ constexpr int entry_rows() {
-  return S::kFirstTemp - S::kAcc;  // the base block: coordinates, prologue values
+// words of each region, in this order
+template <class S, int K>
+struct Smem {
+  static constexpr int kSlotRow = K * hb::kRowWords;
+  static constexpr int kRows = S::kSlots * kSlotRow;  // A, B, the temporaries
+  static constexpr int kTable = kEntries * S::kAcc * kSlotRow;  // coordinates only
+  static constexpr int kPro = (S::kEntry - S::kAcc) * kSlotRow;  // the base block's prologue values
+  static constexpr int kScratch = S::kWarps * K * hb::scratch_words<K>();
+  static constexpr int kFold = K > 1 ? hb::kFoldRows * hb::kRowWords : 0;
+  static constexpr int kWords = kRows + kTable + kPro + kScratch + kFold + S::kFlags;
+  static constexpr size_t kBytes = sizeof(int32_t) * kWords;
+  static constexpr int kBlocksPerSm = kSmemPerSm / (kBytes + kSmemPerBlockReserved);
+};
+
+// K for a batch of R rows (pick_k), as chip_smoke.py's ladder_crossover
+// measured it on the H100 (PERF.md §6): 4 from kRowsK4 rows (below, its
+// R/4 blocks leave SMs idle); under it 2 from rows_k2 (G2, whose blocks of
+// 8 warps share an SM badly), else 1
+constexpr int kRowsK4 = 512;
+template <bool kFp2>
+__host__ __device__ constexpr int rows_k2() {
+  return kFp2 ? 256 : kRowsK4;
+}
+constexpr int kSms = 132;  // the H100 SXM's
+
+// Blocks an SM for __launch_bounds__, which sets the registers a thread: at
+// K = 4 as many as shared memory holds, at most 24 warps; at K = 1 and 2
+// the most that pick_k's row range for that K puts on one SM, so a small
+// batch's few blocks run on all the registers they can use
+template <class S, bool kFp2, int K>
+constexpr int min_blocks() {
+  if (K == 4) {
+    constexpr int by_smem = Smem<S, K>::kBlocksPerSm;
+    constexpr int by_warps = 24 / S::kWarps;
+    return by_smem < by_warps ? by_smem : by_warps;
+  }
+  constexpr int rows = K == 2 ? kRowsK4 : rows_k2<kFp2>();
+  return (rows / K + kSms - 1) / kSms;
 }
 
-template <class S>
-constexpr size_t smem_bytes() {
-  return sizeof(int32_t) *
-         (32 * (S::kWinSlots + kEntries * entry_rows<S>()) + S::kWarps * kScratch +
-          S::kWinSlots);
-}
-
-// rows src[0 .. n) → dst[0 .. n), a warp a row
-template <class S>
-__device__ __forceinline__ void copy_rows(int32_t (*dst)[32], const int32_t (*src)[32], int n,
-                                          int warp) {
-  for (int k = warp; k < n; k += S::kWarps) dst[k][hb::lane_id()] = src[k][hb::lane_id()];
-}
-
-// the results of table T (temporaries) → dst[0 .. kAcc)
-template <class S, bool kFp2, Table T>
-__device__ __forceinline__ void copy_out(int32_t (*dst)[32], const int32_t (*sv)[32], int warp) {
-  for (int k = warp; k < S::kAcc; k += S::kWarps) {
-    dst[k][hb::lane_id()] = sv[table_out<kFp2, T>(k)][hb::lane_id()];
+// slot rows src[0 .. n) → dst[0 .. n), all K rows of each, a warp a row
+template <class S, int K>
+__device__ __forceinline__ void copy_rows(int32_t* dst, const int32_t* src, int n, int warp) {
+  for (int k = warp; k < n; k += S::kWarps) {
+    for (int i = hb::lane_id(); i < K * hb::kRowWords; i += 32) {
+      dst[k * K * hb::kRowWords + i] = src[k * K * hb::kRowWords + i];
+    }
   }
 }
 
-// Blocks an SM, as many as the bitwise kernel gets: registers bound both
-// (65 536 an SM).  G2, 8 warps: 3 blocks, at most 85 registers a thread
-// (unbounded, ptxas takes 95 and 2 blocks fit); G1, 3 warps: 8 blocks
-// (with a minimum of 1, ptxas takes 141 registers and 4 blocks fit)
-template <class S, bool kFp2>
-__global__ void __launch_bounds__(S::kWarps * 32, kFp2 ? 3 : 8)
+template <class S, bool kFp2, int K>
+__global__ void __launch_bounds__(S::kWarps * 32, min_blocks<S, kFp2, K>())
 ladder_window_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ py,
                      const int32_t* __restrict__ pz, const int32_t* __restrict__ bits,
                      const uint8_t* __restrict__ base_inf,
@@ -88,114 +122,294 @@ ladder_window_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__
                      int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                      int32_t* __restrict__ oz, uint8_t* __restrict__ out_inf,
                      int R, int nbits) {
-  constexpr int kEntry = entry_rows<S>();
+  using M = Smem<S, K>;
   extern __shared__ __align__(16) int32_t smem[];
-  int32_t(*sv)[32] = reinterpret_cast<int32_t(*)[32]>(smem);  // kWinSlots rows
-  int32_t(*table)[32] = sv + S::kWinSlots;                     // kEntries × kEntry rows
-  int32_t* scratch = smem + 32 * (S::kWinSlots + kEntries * kEntry);
-  int* flag = reinterpret_cast<int*>(scratch + S::kWarps * kScratch);
+  int32_t* rows = smem;  // A: slots 0 .. kAcc − 1, B: kAcc .. 2 kAcc − 1, the temporaries
+  int32_t* acc_b = rows + S::kAcc * M::kSlotRow;
+  int32_t* table = rows + M::kRows;
+  int32_t* pro = table + M::kTable;
+  int32_t* scratch = pro + M::kPro;
+  int32_t* fold_s = scratch + M::kScratch;
+  int* flag = reinterpret_cast<int*>(fold_s + M::kFold);
 
   const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.x;  // one row per block
-  int32_t* wscratch = scratch + warp * kScratch;
-  hb::FieldLane f;
-  hb::load_field(f, fold, subc);
-  hb::zero_scratch(wscratch);
+  const int g = hb::Lanes<K>::group();
+  const int r = blockIdx.x * K + g;  // this lane's row
+  const bool valid = r < R;
+  int32_t* wscratch = scratch + (warp * K + g) * hb::scratch_words<K>();
+  for (int i = threadIdx.x; i < S::kFlags; i += blockDim.x) flag[i] = 0;
+  hb::zero_scratch<K>(wscratch);
+  if constexpr (K > 1) hb::stage_fold(fold_s, fold);
+  load_point<S, K, kFp2>(table, warp, px, py, pz, R, r);
+  __syncthreads();
+  hb::FieldLane<K> f;
+  hb::load_field<K>(f, fold, subc, fold_s);
 
-  for (int i = threadIdx.x; i < S::kWinSlots; i += blockDim.x) flag[i] = 0;
-  load_row<S, kFp2>(sv, warp, px, py, pz, R, r);
-  __syncthreads();
-  if (warp == 0) run_prologue<kFp2, S::kPrologue>(sv, wscratch, f);
-  __syncthreads();
+  // entry e's coordinates: the whole block's, and this lane's
+  auto entry_block = [&](int e) { return table + e * S::kAcc * M::kSlotRow; };
+  auto entry = [&](int e) { return rows_at<K>(table, e * S::kAcc); };
+  int32_t* const my_rows = rows_at<K>(rows, 0);
+  int32_t* const my_pro = rows_at<K>(pro, 0);
+  const bool binf = valid ? base_inf[r] != 0 : true;
+  const int32_t* rbits = bits + static_cast<size_t>(valid ? r : 0) * nbits;
 
-  // the table: entry e holds (e + 1)·P; entry 0 is the base block
-  int step = 0;
-  copy_rows<S>(table, sv + S::kAcc, kEntry, warp);
-#pragma unroll 1
-  for (int k = 2; k <= kEntries; ++k) {
-    __syncthreads();
-    const int src = (k & 1) ? k - 2 : k / 2 - 1;  // (k − 1)·P + P, or 2·(k/2)·P
-    copy_rows<S>(sv, table + src * kEntry, S::kAcc, warp);
-    __syncthreads();
-    ++step;
-    int32_t(*dst)[32] = table + (k - 1) * kEntry;
-    if (k & 1) {
-      run_table<kFp2, kAddp>(warp, sv, wscratch, flag, f, false, false, false, step);
-      __syncthreads();
-      copy_out<S, kFp2, kAddp>(dst, sv, warp);
-    } else {
-      run_table<kFp2, kDbl>(warp, sv, wscratch, flag, f, false, false, false, step);
-      __syncthreads();
-      copy_out<S, kFp2, kDbl>(dst, sv, warp);
-    }
-  }
-  __syncthreads();
-  // every other entry's prologue, on the entry's own rows (slot s of the
-  // block is row s − kAcc of the entry)
-  for (int e = 1 + warp; e < kEntries; e += S::kWarps) {
-    run_prologue<kFp2, S::kPrologue>(table + e * kEntry - S::kAcc, wscratch, f);
-  }
-  for (int k = warp; k < S::kAcc; k += S::kWarps) sv[k][hb::lane_id()] = 0;  // acc = ∞
-  __syncthreads();
-
-  const bool binf = base_inf[r] != 0;
-  const int32_t* rbits = bits + static_cast<size_t>(r) * nbits;
+  // The phases, one step each, through one call of run_list: the prologue
+  // of P (warp 0); the table, entry k − 1 (k = 2 .. 15) from entry src by
+  // an addp step (k odd: (k − 1)·P + P) or a dbl step (2·(k/2)·P), src
+  // copied into A and the result (in B) into entry k − 1 at the next phase;
+  // then per window (MSB first) dbl A→B with the prologue of entry idx − 1
+  // beside it, dbl B→A, dbl A→B, and the bitwise ladder's step B→A with
+  // base T[idx] and bit idx ≠ 0: the fourth doubling, the addition of
+  // entry idx and the selects.
+  constexpr int kWindows0 = kEntries;
+  const int phases = kWindows0 + (nbits / kWindow) * kWindow;
   bool inf = true;
+  int idx = 0;
 #pragma unroll 1
-  for (int i = nbits - kWindow; i >= 0; i -= kWindow) {  // MSB window first
-    const int idx = (rbits[i] != 0) | (rbits[i + 1] != 0) << 1 | (rbits[i + 2] != 0) << 2 |
-                    (rbits[i + 3] != 0) << 3;
-#pragma unroll 1
-    for (int d = 1; d < kWindow; ++d) {
-      ++step;
-      run_table<kFp2, kDbl>(warp, sv, wscratch, flag, f, false, false, false, step);
+  for (int ph = 0; ph < phases; ++ph) {
+    int table_id = hb_sched::kPrologue;
+    bool run = true, used = false;
+    int32_t* base = entry(0);
+    if (ph == 0) {
+      run = warp == 0;
+    } else if (ph < kWindows0) {
+      const int k = ph + 1;
+      const int src = (k & 1) ? k - 2 : k / 2 - 1;
+      if (k > 2) copy_rows<S, K>(entry_block(k - 2), acc_b, S::kAcc, warp);
+      // the entry the last phase made is still in B
+      copy_rows<S, K>(rows, k > 2 && src == k - 2 ? acc_b : entry_block(src), S::kAcc, warp);
       __syncthreads();
-      copy_out<S, kFp2, kDbl>(sv, sv, warp);
-      __syncthreads();
+      table_id = (k & 1) ? hb_sched::kAddpAB : hb_sched::kDblAB;
+    } else {
+      const int w = (ph - kWindows0) / kWindow, d = (ph - kWindows0) % kWindow;
+      if (d == 0) {
+        if (w == 0) {
+          copy_rows<S, K>(entry_block(kEntries - 1), acc_b, S::kAcc, warp);
+          zero_rows<S, K>(rows, S::kAcc, warp);  // A: acc = ∞
+          __syncthreads();
+        }
+        const int i = nbits - kWindow * (w + 1);
+        idx = valid ? ((rbits[i] != 0) | (rbits[i + 1] != 0) << 1 | (rbits[i + 2] != 0) << 2 |
+                       (rbits[i + 3] != 0) << 3)
+                    : 0;
+      }
+      used = idx != 0;
+      table_id = d == 0 ? hb_sched::kDblproAB
+                        : (d == 1 ? hb_sched::kDblBA
+                                  : (d == 2 ? hb_sched::kDblAB : hb_sched::kStepBA));
+      base = entry(used ? idx - 1 : 0);
     }
-    // the fourth doubling, the addition of entry idx and the selects: the
-    // bitwise ladder's step with base T[idx] and bit idx ≠ 0
-    copy_rows<S>(sv + S::kAcc, table + (idx ? idx - 1 : 0) * kEntry, kEntry, warp);
-    __syncthreads();
-    ++step;
-    const bool used = idx != 0;
-    run_table<kFp2, kStep>(warp, sv, wscratch, flag, f, used, inf, binf, step);
-    inf = used ? (inf && binf) : inf;
+    const int b0 = list_bound<kFp2>(table_id, warp, 0);
+    const int b1 = run ? list_bound<kFp2>(table_id, warp, 1) : b0;
+    run_list<S, K, kFp2>(b0, b1, {my_rows, base, my_pro}, wscratch, flag, f, used, inf, binf,
+                         ph + 1);
+    if (table_id == hb_sched::kStepBA) inf = used ? (inf && binf) : inf;
     __syncthreads();
   }
 
-  store_row<S, kFp2>(sv, warp, ox, oy, oz, R, r);
-  if (threadIdx.x == 0) out_inf[r] = inf ? 1 : 0;
+  store_point<S, K, kFp2>(rows, warp, ox, oy, oz, R, r);
+  if (warp == 0 && hb::Lanes<K>::chunk() == 0 && valid) out_inf[r] = inf ? 1 : 0;
 }
 
-template <class S, bool kFp2>
+template <class S, bool kFp2, int K>
 int launch(const void* px, const void* py, const void* pz, const void* bits,
            const void* base_inf, const void* fold, const void* subc, void* ox, void* oy,
            void* oz, void* out_inf, int R, int nbits, cudaStream_t stream) {
-  const auto kernel = &ladder_window_kernel<S, kFp2>;
-  constexpr size_t bytes = smem_bytes<S>();
+  const auto kernel = &ladder_window_kernel<S, kFp2, K>;
+  constexpr size_t bytes = Smem<S, K>::kBytes;
   const cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc != cudaSuccess) return (int)rc;
-  kernel<<<R, 32 * S::kWarps, bytes, stream>>>(
+  kernel<<<(R + K - 1) / K, 32 * S::kWarps, bytes, stream>>>(
       (const int32_t*)px, (const int32_t*)py, (const int32_t*)pz, (const int32_t*)bits,
       (const uint8_t*)base_inf, (const int32_t*)fold, (const int32_t*)subc, (int32_t*)ox,
       (int32_t*)oy, (int32_t*)oz, (uint8_t*)out_inf, R, nbits);
   return (int)cudaGetLastError();
 }
 
+template <class S, bool kFp2>
+int launch_k(int k, const void* px, const void* py, const void* pz, const void* bits,
+             const void* base_inf, const void* fold, const void* subc, void* ox, void* oy,
+             void* oz, void* out_inf, int R, int nbits, cudaStream_t stream) {
+  switch (k) {
+    case 1:
+      return launch<S, kFp2, 1>(px, py, pz, bits, base_inf, fold, subc, ox, oy, oz, out_inf, R,
+                                nbits, stream);
+    case 2:
+      return launch<S, kFp2, 2>(px, py, pz, bits, base_inf, fold, subc, ox, oy, oz, out_inf, R,
+                                nbits, stream);
+    case 4:
+      return launch<S, kFp2, 4>(px, py, pz, bits, base_inf, fold, subc, ox, oy, oz, out_inf, R,
+                                nbits, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The field at K elements a warp, on its own: rows r of a, b (R rows of 32
+// digits, digits 30 and 31 zero) → row r of out, one warp a block for K
+// rows.  kKind: MUL, ADD, SUB, or −1 for none (the row copied: the probes'
+// common cost).  `reps` > 1 chains the operation: a ← a op b, `reps`
+// times, each reading the last one's result (a warp's latency of one
+// operation: a launch of one block over reps).  No path launches it:
+// chip_smoke.py holds it digit-exact against the plain field, times the
+// chain and counts its SASS instructions, an operation's less the empty
+// probe's.
+template <int K, int kKind>
+__global__ void __launch_bounds__(32)
+lazy_op_probe(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+              int32_t* __restrict__ out, const int32_t* __restrict__ fold,
+              const int32_t* __restrict__ subc, int R, int reps) {
+  using L = hb::Lanes<K>;
+  __shared__ __align__(16) int32_t rows[2][K * hb::kRowWords];
+  __shared__ __align__(16) int32_t scratch[K * hb::scratch_words<K>()];
+  __shared__ __align__(16) int32_t fold_s[K > 1 ? hb::kFoldRows * hb::kRowWords : 4];
+  if constexpr (K > 1) hb::stage_fold(fold_s, fold);
+  const int g = L::group(), j = L::chunk();
+  const int r = blockIdx.x * K + g;
+  hb::zero_scratch<K>(scratch + g * hb::scratch_words<K>());
+  const int own = L::at(j, g);
+  int32_t v[K];
+  const int32_t* src[2] = {a, b};
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    for (int m = 0; m < K; ++m) v[m] = r < R ? src[t][r * hb::kRowWords + K * j + m] : 0;
+    hb::st<K>(rows[t] + g * hb::kRowWords + own, v);
+  }
+  __syncthreads();
+  hb::FieldLane<K> f;
+  hb::load_field<K>(f, fold, subc, fold_s);
+  int32_t* ra = rows[0] + g * hb::kRowWords;
+  int32_t x[K], y[K];
+  hb::ld<K>(ra + own, x);
+#pragma unroll 1
+  for (int rep = 0; rep < reps; ++rep) {
+    if constexpr (kKind == hb_sched::MUL) {
+      hb::fp_mul_unsqueezed<K>(ra, rows[1] + g * hb::kRowWords, scratch + g * hb::scratch_words<K>(),
+                               f, x);
+      hb::squeeze<K>(x, f);
+    } else if constexpr (kKind == hb_sched::ADD || kKind == hb_sched::SUB) {
+      hb::ld<K>(rows[1] + g * hb::kRowWords + own, y);
+#pragma unroll
+      for (int m = 0; m < K; ++m) x[m] += kKind == hb_sched::ADD ? y[m] : f.subk[m] - y[m];
+      hb::squeeze<K>(x, f);
+    } else {  // the field's constants live all the same, at no instruction's cost
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        asm volatile("" ::"r"(f.row0[m]), "r"(f.subk[m]), "r"(f.keep[m]));
+      }
+#pragma unroll
+      for (int d = 0; d < 4; ++d) asm volatile("" ::"r"(f.below[d]), "r"(f.row0w[d]));
+      if constexpr (K == 1) {
+#pragma unroll
+        for (int i = 0; i < hb::kFoldRows; ++i) asm volatile("" ::"r"(f.fold[i]));
+      }
+    }
+    __syncwarp();
+    hb::st<K>(ra + own, x);
+    __syncwarp();
+  }
+  if (r < R) {
+    for (int m = 0; m < K; ++m) out[r * hb::kRowWords + K * j + m] = x[m];
+  }
+}
+
+template <int K>
+int probe_k(int kind, const void* a, const void* b, void* out, const void* fold,
+            const void* subc, int R, int reps, cudaStream_t stream) {
+  void (*kernel)(const int32_t*, const int32_t*, int32_t*, const int32_t*, const int32_t*, int,
+                 int);
+  switch (kind) {
+    case hb_sched::MUL: kernel = &lazy_op_probe<K, hb_sched::MUL>; break;
+    case hb_sched::ADD: kernel = &lazy_op_probe<K, hb_sched::ADD>; break;
+    case hb_sched::SUB: kernel = &lazy_op_probe<K, hb_sched::SUB>; break;
+    case -1: kernel = &lazy_op_probe<K, -1>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  kernel<<<(R + K - 1) / K, 32, 0, stream>>>((const int32_t*)a, (const int32_t*)b,
+                                            (int32_t*)out, (const int32_t*)fold,
+                                            (const int32_t*)subc, R, reps);
+  return (int)cudaGetLastError();
+}
+
+int pick_k(int R, int fp2) {
+  if (R >= kRowsK4) return 4;
+  return R >= (fp2 ? rows_k2<true>() : rows_k2<false>()) ? 2 : 1;
+}
+
+template <class S, bool kFp2, int K>
+int info(int* out) {
+  const auto kernel = &ladder_window_kernel<S, kFp2, K>;
+  constexpr size_t bytes = Smem<S, K>::kBytes;
+  cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  cudaFuncAttributes attr;
+  rc = cudaFuncGetAttributes(&attr, kernel);
+  if (rc != cudaSuccess) return (int)rc;
+  int blocks = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, 32 * S::kWarps, bytes);
+  if (rc != cudaSuccess) return (int)rc;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = (int)bytes;
+  out[4] = S::kWarps;
+  return 0;
+}
+
 }  // namespace
 
+// One launch at K rows a block (K = 1, 2 or 4).
+extern "C" int hb_ladder_window_k(const void* px, const void* py, const void* pz,
+                                  const void* bits, const void* base_inf,
+                                  const void* fold, const void* subc,
+                                  void* ox, void* oy, void* oz, void* out_inf,
+                                  int R, int nbits, int fp2, int k, void* stream) {
+  if (nbits % kWindow != 0) return (int)cudaErrorInvalidValue;
+  return fp2 ? launch_k<hb_sched::G2, true>(k, px, py, pz, bits, base_inf, fold, subc, ox, oy,
+                                            oz, out_inf, R, nbits, (cudaStream_t)stream)
+             : launch_k<hb_sched::G1, false>(k, px, py, pz, bits, base_inf, fold, subc, ox, oy,
+                                             oz, out_inf, R, nbits, (cudaStream_t)stream);
+}
+
+// One launch at the K that pick_k chooses for R rows.
 extern "C" int hb_ladder_window(const void* px, const void* py, const void* pz,
                                 const void* bits, const void* base_inf,
                                 const void* fold, const void* subc,
                                 void* ox, void* oy, void* oz, void* out_inf,
                                 int R, int nbits, int fp2, void* stream) {
-  if (nbits % kWindow != 0) return (int)cudaErrorInvalidValue;
-  return fp2 ? launch<hb_sched::G2, true>(px, py, pz, bits, base_inf, fold, subc, ox, oy, oz,
-                                          out_inf, R, nbits, (cudaStream_t)stream)
-             : launch<hb_sched::G1, false>(px, py, pz, bits, base_inf, fold, subc, ox, oy, oz,
-                                           out_inf, R, nbits, (cudaStream_t)stream);
+  return hb_ladder_window_k(px, py, pz, bits, base_inf, fold, subc, ox, oy, oz, out_inf, R,
+                            nbits, fp2, pick_k(R, fp2), stream);
+}
+
+extern "C" int hb_ladder_window_pick(int R, int fp2) { return pick_k(R, fp2); }
+
+// The K-row kernel's registers, local (spilled) bytes, blocks an SM,
+// dynamic shared memory bytes and warps a block, into out[0 .. 5).
+extern "C" int hb_ladder_window_info(int k, int fp2, int* out) {
+  switch (k * 2 + (fp2 ? 1 : 0)) {
+    case 2: return info<hb_sched::G1, false, 1>(out);
+    case 3: return info<hb_sched::G2, true, 1>(out);
+    case 4: return info<hb_sched::G1, false, 2>(out);
+    case 5: return info<hb_sched::G2, true, 2>(out);
+    case 8: return info<hb_sched::G1, false, 4>(out);
+    case 9: return info<hb_sched::G2, true, 4>(out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One launch of the field probe at K elements a warp (kind: 0 MUL, 1 ADD,
+// 2 SUB, −1 none), the operation chained `reps` times.
+extern "C" int hb_lazy_op_probe(int k, int kind, const void* a, const void* b, void* out,
+                                const void* fold, const void* subc, int R, int reps,
+                                void* stream) {
+  switch (k) {
+    case 1: return probe_k<1>(kind, a, b, out, fold, subc, R, reps, (cudaStream_t)stream);
+    case 2: return probe_k<2>(kind, a, b, out, fold, subc, R, reps, (cudaStream_t)stream);
+    case 4: return probe_k<4>(kind, a, b, out, fold, subc, R, reps, (cudaStream_t)stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* hb_error_string(int rc) {

@@ -16,10 +16,17 @@ tensors.
 The windowed ladder (``gcurve.scalar_mul_lazy_window``: a table of 15
 multiples, then 4 doubles and one table addition a window) is the second
 kernel, ``csrc/ladder_window.cu``, on the same step machinery
-(``csrc/ladder_steps.cuh``): :func:`ladder_window`.
+(``csrc/ladder_steps.cuh``) with K rows a block (K = 1, 2 or 4; the
+field of ``csrc/fp_lazy.cuh`` at K elements a warp): :func:`ladder_window`
+at the K the kernel picks for the batch (:func:`window_k`),
+:func:`ladder_window_k` at a given K, :func:`window_info` the compiled
+kernel's registers and occupancy, :func:`lazy_op_probe` one field
+operation at K elements a warp on its own.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -27,6 +34,7 @@ from hbbft_tpu_torch import _build
 from hbbft_tpu_torch.ops import fp381 as F
 
 NL = F.NL
+KS = (1, 2, 4)  # the windowed kernel's rows a block
 
 
 def ladder_lazy(pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool):
@@ -49,7 +57,57 @@ def ladder_window(pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool):
     return _launch("ladder_window", pt, bits, base_inf, fp2)
 
 
-def _launch(name: str, pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool):
+def ladder_window_k(pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool, k: int):
+    """:func:`ladder_window` at K = ``k`` rows a block (1, 2 or 4)."""
+    if k not in KS:
+        raise ValueError(f"ladder_window_k: K is one of {KS}, not {k}")
+    if bits.dim() == 2 and bits.shape[1] % 4:
+        raise ValueError(f"ladder_window takes a multiple of 4 bits, not {bits.shape[1]}")
+    return _launch("ladder_window", pt, bits, base_inf, fp2, k)
+
+
+def _fn(name: str, argtypes):
+    fn = getattr(_build.lib("ladder_window"), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def window_k(rows: int, fp2: bool) -> int:
+    """The K (rows a block) that ``ladder_window`` runs ``rows`` rows at."""
+    return _fn("hb_ladder_window_pick", [ctypes.c_int, ctypes.c_int])(rows, int(fp2))
+
+
+def window_info(k: int, fp2: bool) -> dict:
+    """The windowed kernel at K = ``k``: registers a thread, spilled (local)
+    bytes, blocks an SM, dynamic shared memory bytes, warps a block."""
+    out = (ctypes.c_int * 5)()
+    rc = _fn("hb_ladder_window_info", [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])(
+        k, int(fp2), ctypes.addressof(out))
+    _build.check("ladder_window", rc)
+    return dict(zip(("registers", "spilled_bytes", "blocks_per_sm", "smem_bytes", "warps"),
+                    out))
+
+
+def lazy_op_probe(kind: int, a: torch.Tensor, b: torch.Tensor, k: int,
+                  reps: int = 1) -> torch.Tensor:
+    """One lazy field operation (``kind``: 0 MUL, 1 ADD, 2 SUB, −1 none,
+    which returns ``a``) at ``k`` elements a warp on CUDA (NL, R) int32
+    columns, by the probe kernel of ``csrc/ladder_window.cu``, chained
+    ``reps`` times (a ← a op b); no path runs it."""
+    rows = [torch.nn.functional.pad(x.t(), (0, 32 - NL)).contiguous() for x in (a, b)]
+    out = torch.empty_like(rows[0])
+    if out.shape[0]:
+        c = F.consts(a.device)
+        rc = _fn("hb_lazy_op_probe", [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 +
+                 [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])(
+            k, kind, rows[0].data_ptr(), rows[1].data_ptr(), out.data_ptr(), c.fold.data_ptr(),
+            c.subc.data_ptr(), out.shape[0], reps, _build.stream_ptr(a))
+        _build.check("ladder_window", rc)
+    return out[:, :NL].t().contiguous()
+
+
+def _launch(name: str, pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool,
+            k: int | None = None):
     x, y, z = pt
     dev = x.device
     if dev.type != "cuda":
@@ -75,14 +133,17 @@ def _launch(name: str, pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool
     out = tuple(torch.empty_like(c) for c in (x, y, z))
     inf = torch.empty((R,), dtype=torch.bool, device=dev)
     if R:
-        k = F.consts(dev)
-        lib = _build.lib(name)
-        rc = getattr(lib, _build.KERNELS[name][1])(
-            x.data_ptr(), y.data_ptr(), z.data_ptr(), bits.data_ptr(),
-            base_inf.data_ptr(), k.fold.data_ptr(), k.subc.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            inf.data_ptr(), R, nbits, int(fp2), _build.stream_ptr(x),
-        )
+        c = F.consts(dev)
+        args = (x.data_ptr(), y.data_ptr(), z.data_ptr(), bits.data_ptr(),
+                base_inf.data_ptr(), c.fold.data_ptr(), c.subc.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                inf.data_ptr(), R, nbits, int(fp2))
+        if k is None:
+            rc = getattr(_build.lib(name), _build.KERNELS[name][1])(*args, _build.stream_ptr(x))
+        else:
+            rc = _fn("hb_ladder_window_k", _build.KERNELS[name][2][:-1] + [ctypes.c_int,
+                                                                        ctypes.c_void_p])(
+                *args, k, _build.stream_ptr(x))
         _build.check(name, rc)
         _build.LAUNCHES[name] += 1
     return out, inf

@@ -1,5 +1,5 @@
-"""The whole-ladder kernel's step schedule: one table for the kernel and its
-lane model.
+"""The ladder kernels' step schedules: one set of tables for the kernels and
+their lane model.
 
 One ladder step (:func:`hbbft_tpu_torch.ops.gcurve.ladder_step`: the
 doubling, the raw addition of the base, the selects) is traced through the
@@ -18,24 +18,31 @@ table may reorder, share and hoist them without changing a digit:
 - the rest is list-scheduled, longest path first, onto ``W`` warps: each
   warp gets an ordered list of operations.
 
-In the kernel (``csrc/ladder_lazy.cu``) every value of a step has its own
-shared-memory slot (one 13-bit digit a lane) and a ready flag; a warp waits
-for the flag of each operand that another warp computes (its own are ready
-by program order), computes, stores and raises its destination's flag;
-the step ends at a block barrier.  An operation waits only for operations
-that started earlier in the simulated schedule, so no warp order can
-deadlock.  ``SEL`` writes the next accumulator:
-``acc = bit ? (inf ? base : (base_inf ? d : s)) : d``.
+In the kernels (``csrc/ladder_steps.cuh``) a block runs K rows, and every
+value of a step has a slot (a row of K·32 digits in shared memory) and a
+ready flag; a warp waits for the flag of each operand that another warp
+computes (its own are ready by program order), computes, stores and
+raises its destination's flag; the step ends at a block barrier.  An
+operation waits only for operations that started earlier in the simulated
+schedule, so no warp order can deadlock.  ``SEL`` writes the next
+accumulator: ``acc = bit ? (inf ? base : (base_inf ? d : s)) : d``.
 
-The windowed kernel (``csrc/ladder_window.cu``) runs the same step table
-and two more over the same slot layout, both without selects: ``dbl``
-(``point_double`` of the accumulator alone) and ``addp`` (``point_add_raw``
-of the accumulator and the base point, for the table's odd entries).  Their
-results stay in temporaries (``outs``), which the kernel copies after a
-barrier, to the accumulator or to a table entry.  A table entry holds what
-the base block holds — the coordinates and the prologue's values — so
-before a window's step the kernel copies the selected entry into the base
-block and the step table runs unchanged.
+Slots are rows: the two accumulator sets A and B, then the temporaries.
+A table reads one set and writes the other (``sets``, "AB" or "BA"), so
+no step copies its result.  A temporary is reused once every reader of
+its value has surely read it — each reader is the new writer, one of its
+ancestors, or an earlier operation of its warp — so its flag counts the
+writes (``VERSIONS`` at most a step) and a reader waits for the one it
+reads.  Operands of the base block (the base point's coordinates, then the
+prologue's values) are flagged "base": the kernel points them at the
+table entry of each row, in place.
+
+The windowed kernel (``csrc/ladder_window.cu``) runs the step table and
+three more: ``dbl`` (``point_double`` of the accumulator alone), ``addp``
+(``point_add_raw`` of the accumulator and the base point, for the table's
+odd entries) and ``dblpro`` (``dbl`` with the prologue of the next step's
+base block scheduled beside it, since a table entry keeps only its
+coordinates).
 
 ``python -m hbbft_tpu_torch.ops.ladder_schedule`` writes
 ``csrc/ladder_schedule.h`` from :func:`header`;
@@ -60,10 +67,13 @@ KIND_NAMES = ("MUL", "ADD", "SUB", "SEL")
 WARPS = {"g1": 3, "g2": 8}
 
 # Cycles of one operation on one warp, for the list scheduler's priorities
-# and the simulated start times only: a product about twice a sum, as the
-# card shows (PERF.md); the simulated step is shorter than the card's,
-# which also waits on flags and shares each SM's int32 pipe.
-LATENCY = {MUL: 1400, ADD: 660, SUB: 660, SEL: 120}
+# and the simulated start times only: a warp's latency of a chained lazy
+# product, sum and difference at K = 4 elements a warp on the H100
+# (chip_smoke.py's kernel_field: 682, 199 and 202 ns at 1 980 MHz; PERF.md
+# §6); a select, a few loads and stores, is not measured.  The simulated
+# step is shorter than the card's, which also waits on flags and shares
+# each scheduler among the warps of several blocks.
+LATENCY = {MUL: 1350, ADD: 400, SUB: 400, SEL: 60}
 OVERHEAD = 80  # flag wait + store + flag raise
 
 HEADER = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -136,38 +146,58 @@ class _SymFp2:
         return t0, f.add(t1, t1)
 
 
-KINDS = ("step", "dbl", "addp")  # the tables, see the module docstring
+KINDS = ("step", "dbl", "addp", "dblpro")  # the tables, see the module docstring
+VERSIONS = 7  # writes of one slot in one step, at most (3 bits)
 
 
 @dataclass(frozen=True)
 class Schedule:
-    """One group's table of one kind.  Slots: ``acc`` then ``base`` (3 or 6
-    each, in (x, y, z) × (re, im) order), then prologue results (the base
-    block ends at ``first_temp``, the same for every kind), then the
-    table's temporaries.  An op is ``(kind, dst, a, b, c, wait)`` (``c``
-    only for SEL; ``wait``: which sources another warp computes in this
-    step).  ``outs``: the temporaries that hold the result of a table
-    without selects (empty for ``step``, whose selects write ``acc``)."""
+    """One group's table of one kind, reading one accumulator set and
+    writing the other (``sets``: "AB" reads A, writes B).  Slot ids are
+    rows: A is 0 .. n_acc − 1, B n_acc .. 2·n_acc − 1, the temporaries
+    from 2·n_acc (``n_temps``, the most any table of the group needs), so
+    ``n_slots = 2·n_acc + n_temps``.  The base block (the base point's
+    coordinates, then the prologue's results: ``entry_rows`` rows) is apart:
+    an operand flagged "base" is row k of the block the kernel points it at
+    (a table entry of its own for each row of a block).  An op is ``(kind,
+    dst, a, b, c, wait, ver)``: ``c`` only for SEL; bit k of ``wait`` says
+    source k is another warp's value of this step, bit 4 + k that source k
+    is a base row (bit 7: ``dst``); ``ver`` holds 3 bits a source (which
+    write of its slot it reads, bits 0–8) and 3 bits for the write of
+    ``dst`` (bits 9–11); 0 for rows written before the step, and for a
+    select's ``dst``, which no op of the step reads."""
 
     warps: int
     n_acc: int
-    first_temp: int
-    n_slots: int
+    n_temps: int
+    entry_rows: int
+    sets: str
     prologue: Tuple[tuple, ...]
     lists: Tuple[Tuple[tuple, ...], ...]  # one ordered op list per warp
     makespan: int  # simulated cycles of one step
-    outs: Tuple[int, ...] = ()
+
+    @property
+    def n_slots(self) -> int:
+        return 2 * self.n_acc + self.n_temps
+
+    @property
+    def in_rows(self) -> range:
+        return range(0, self.n_acc) if self.sets == "AB" else range(self.n_acc, 2 * self.n_acc)
+
+    @property
+    def out_rows(self) -> range:
+        return range(self.n_acc, 2 * self.n_acc) if self.sets == "AB" else range(0, self.n_acc)
 
 
 def _flat(p, fp2):
     return [e for c in p for e in (c if fp2 else (c,))]
 
 
-def build(group: str, kind: str = "step") -> Schedule:
-    """Trace, hoist, schedule and assign slots for ``group`` ("g1"/"g2")
-    and table ``kind`` (one of ``KINDS``) on its ``WARPS[group]`` warps a
-    row."""
-    return _schedule(group, WARPS[group], kind)
+def build(group: str, kind: str = "step", sets: str = "AB") -> Schedule:
+    """The table ``kind`` (one of ``KINDS``) of ``group`` ("g1"/"g2") on its
+    ``WARPS[group]`` warps a row, reading set ``sets[0]`` and writing
+    ``sets[1]``."""
+    return _schedule(group, WARPS[group], kind, sets)
 
 
 def _live(t, outs):
@@ -181,7 +211,15 @@ def _live(t, outs):
     return [v for v in t.ops if id(v) in live]
 
 
-def _schedule(group: str, warps: int, kind: str = "step") -> Schedule:
+def _schedule(group: str, warps: int, kind: str = "step", sets: str = "AB") -> Schedule:
+    plans = {k: _plan(group, warps, k) for k in KINDS}
+    n_temps = max(p["n_temps"] for p in plans.values())
+    return _encode(plans[kind], warps, n_temps, sets)
+
+
+def _plan(group: str, warps: int, kind: str) -> dict:
+    """Trace, hoist, list-schedule and assign temporaries (reused once every
+    reader of their value has surely run) for one table."""
     fp2 = group == "g2"
     t = _Tracer()
     o = _SymFp2(t) if fp2 else _SymFp(t)
@@ -200,36 +238,25 @@ def _schedule(group: str, warps: int, kind: str = "step") -> Schedule:
     prologue_vals = [v for v in _live(t, sels) if v.const]
     if kind == "step":
         outs = sels
-    elif kind == "dbl":
+    elif kind in ("dbl", "dblpro"):
         outs = _flat(d, fp2)
     else:
         outs = _flat(G.point_add_raw(o, acc, base), fp2)
+    assert len({id(v) for v in outs}) == len(outs)
     ops = _live(t, outs)
     assert all(id(v) in {id(p) for p in prologue_vals} for v in ops if v.const)
     step_vals = [v for v in ops if not v.const]
+    # dblpro: the doubling and, beside it, the next step's prologue, whose
+    # values are base rows of their own (flagged like any other value)
+    written = prologue_vals if kind == "dblpro" else []
+    step_vals += written
 
     inputs = _flat(acc, fp2) + _flat(base, fp2)
     n_acc = len(inputs) // 2
-    temps = [v for v in step_vals if v.kind != SEL]
     first_temp = len(inputs) + len(prologue_vals)
-    n_slots = first_temp + len(temps)
-    assert n_slots <= 256, "slot ids are bytes"
-    slot = {id(v): i for i, v in enumerate(inputs + prologue_vals + temps)}
-    if kind == "step":
-        slot.update({id(v): i for i, v in enumerate(outs)})  # the selects write acc
+    fixed = {id(v): i for i, v in enumerate(inputs + prologue_vals)}
 
-    warp_of: Dict[int, int] = {}
-
-    def enc(v, w=None):
-        """(kind, dst, a, b, c, wait): bit k of wait marks source k as a
-        value of this step that another warp computes (the kernel waits on
-        its flag; one of this warp's own is ready by program order)."""
-        srcs = [slot[id(x)] for x in v.srcs] + [0] * (3 - len(v.srcs))
-        wait = sum(1 << k for k, x in enumerate(v.srcs)
-                   if id(x) in warp_of and warp_of[id(x)] != w)
-        return (v.kind, slot[id(v)], *srcs, wait)
-
-    # list schedule: longest path to the selects first
+    # list schedule: longest path to the outputs first
     users: Dict[int, list] = {id(v): [] for v in step_vals}
     for v in step_vals:
         for x in v.srcs:
@@ -244,15 +271,18 @@ def _schedule(group: str, warps: int, kind: str = "step") -> Schedule:
     heap = [(-prio[id(v)], order[id(v)], v) for v in step_vals if waiting[id(v)] == 0]
     heapq.heapify(heap)
     free = [0] * warps
-    lists: List[List[tuple]] = [[] for _ in range(warps)]
+    lists: List[List[_Val]] = [[] for _ in range(warps)]
+    warp_of: Dict[int, int] = {}
     finish: Dict[int, int] = {}
+    popped: List[_Val] = []
     while heap:
         _, _, v = heapq.heappop(heap)
         w = min(range(warps), key=lambda k: (max(free[k], ready_at[id(v)]), k))
         start = max(free[w], ready_at[id(v)])
         finish[id(v)] = free[w] = start + LATENCY[v.kind] + OVERHEAD
-        lists[w].append(enc(v, w))
+        lists[w].append(v)
         warp_of[id(v)] = w
+        popped.append(v)
         for u in users[id(v)]:
             ready_at[id(u)] = max(ready_at[id(u)], finish[id(v)])
             waiting[id(u)] -= 1
@@ -260,30 +290,86 @@ def _schedule(group: str, warps: int, kind: str = "step") -> Schedule:
                 heapq.heappush(heap, (-prio[id(u)], order[id(u)], u))
     assert len(finish) == len(step_vals)
 
-    # A select overwrites an accumulator slot in place: every reader of that
-    # slot must be one of its ancestors, so it has read before the write.
-    anc: Dict[int, set] = {}
+    # ancestors (as bit sets over the schedule order) of every step value
+    rank = {id(v): i for i, v in enumerate(popped)}
+    anc: Dict[int, int] = {}
     for v in step_vals:
-        a = set()
+        a = 0
         for x in v.srcs:
             if id(x) in anc:
-                a |= anc[id(x)] | {id(x)}
+                a |= anc[id(x)] | (1 << rank[id(x)])
         anc[id(v)] = a
-    for v in sels if kind == "step" else ():
-        readers = [u for u in step_vals if any(slot[id(x)] == slot[id(v)] and x in inputs
-                                               for x in u.srcs)]
-        assert all(id(u) in anc[id(v)] for u in readers), "select overwrites a live slot"
 
-    return Schedule(warps, n_acc, first_temp, n_slots,
-                    tuple(enc(v) for v in prologue_vals),
-                    tuple(tuple(ls) for ls in lists), max(finish.values()),
-                    () if kind == "step" else tuple(slot[id(v)] for v in outs))
+    # slots: each out value its own out slot (relative id ("out", k)); the
+    # other values a temporary, reusing one whose value every reader has
+    # read before the new write, for sure: each reader is the writer, an
+    # ancestor of it, or an earlier op of its own warp (the reader's flag,
+    # or program order, comes first), and a slot takes VERSIONS writes
+    out_of = {id(v): k for k, v in enumerate(outs)}
+    where: Dict[int, tuple] = {}  # value → (("temp" | "out"), index, version)
+    held: List[_Val] = []  # temporary k → the value it holds now
+    writes: List[int] = []
+    for v in popped:
+        if id(v) in fixed:  # a prologue value dblpro computes: its base row
+            continue
+        if id(v) in out_of:
+            where[id(v)] = ("out", out_of[id(v)], 0 if v.kind == SEL else 1)
+            continue
+        r = rank[id(v)]
+        for k, old in enumerate(held):
+            readers = users[id(old)]
+            if writes[k] < VERSIONS and all(
+                    u is v or (anc[id(v)] >> rank[id(u)]) & 1
+                    or (rank[id(u)] < r and warp_of[id(u)] == warp_of[id(v)])
+                    for u in readers):
+                held[k] = v
+                writes[k] += 1
+                where[id(v)] = ("temp", k, writes[k])
+                break
+        else:
+            held.append(v)
+            writes.append(1)
+            where[id(v)] = ("temp", len(held) - 1, 1)
+    return {"n_acc": n_acc, "first_temp": first_temp, "n_temps": len(held),
+            "fixed": fixed, "written": {id(v) for v in written}, "where": where,
+            "prologue": prologue_vals, "lists": lists,
+            "warp_of": warp_of, "makespan": max(finish.values())}
+
+
+def _encode(p: dict, warps: int, n_temps: int, sets: str) -> Schedule:
+    fixed, where, warp_of = p["fixed"], p["where"], p["warp_of"]
+    n = p["n_acc"]
+    in0, out0 = (0, n) if sets == "AB" else (n, 0)
+
+    def slot(v, step=True):
+        """(row, version, base?): a prologue value has a version only where
+        the table itself computes it (dblpro)"""
+        if id(v) in fixed:
+            k = fixed[id(v)]
+            return (in0 + k, 0, 0) if k < n else (k - n, int(step and id(v) in p["written"]), 1)
+        rng, k, ver = where[id(v)]
+        return (2 * n + k if rng == "temp" else out0 + k), ver, 0
+
+    def enc(v, w=None, step=True):
+        """(kind, dst, a, b, c, wait, ver), see ``Schedule``."""
+        srcs = [slot(x, step) for x in v.srcs] + [(0, 0, 0)] * (3 - len(v.srcs))
+        dst, dver, dbase = slot(v, step)
+        wait = sum(1 << k for k, x in enumerate(v.srcs)
+                   if step and id(x) in warp_of and warp_of[id(x)] != w)
+        wait |= sum(b << (4 + k) for k, (_, _, b) in enumerate(srcs)) | dbase << 7
+        ver = sum(sv << (3 * k) for k, (_, sv, _) in enumerate(srcs)) | dver << 9
+        return (v.kind, dst, *(r for r, _, _ in srcs), wait, ver)
+
+    return Schedule(warps, n, n_temps, p["first_temp"] - n, sets,
+                    tuple(enc(v, step=False) for v in p["prologue"]),
+                    tuple(tuple(enc(v, w) for v in ls) for w, ls in enumerate(p["lists"])),
+                    p["makespan"])
 
 
 def _c_ops(ops) -> str:
     rows = []
-    for kind, dst, a, b, c, wait in ops:
-        rows.append(f"  {{{KIND_NAMES[kind]}, {dst}, {a}, {b}, {c}, {wait}}},")
+    for kind, dst, a, b, c, wait, ver in ops:
+        rows.append(f"  {{{KIND_NAMES[kind]}, {dst}, {a}, {b}, {c}, 0x{wait:02x}, 0{ver:o}}},")
     return "\n".join(rows)
 
 
@@ -294,23 +380,18 @@ def _begins(s: Schedule) -> List[int]:
     return begins
 
 
-def _c_table(name: str, s: Schedule) -> List[str]:
-    """``<name>Ops`` (every warp's list, one after another) and
-    ``<name>Begin`` (where each warp's list starts)."""
-    begins = _begins(s)
-    return [
-        f"__constant__ Op {name}Ops[{begins[-1]}] = {{",
-        "\n".join(f"  // warp {w}\n" + _c_ops(ls) for w, ls in enumerate(s.lists)),
-        "};",
-        f"__constant__ int {name}Begin[{s.warps + 1}] = {{{', '.join(map(str, begins))}}};",
-    ]
+# the tables of the constant array, in order: (kind, sets)
+TABLES = (("step", "AB"), ("step", "BA"), ("dbl", "AB"), ("dbl", "BA"), ("addp", "AB"),
+          ("dblpro", "AB"))
 
 
 def header() -> str:
-    """The text of ``csrc/ladder_schedule.h``."""
+    """The text of ``csrc/ladder_schedule.h``: per group, every table's
+    operations in one constant array (``TABLES``' warps' lists, then the
+    prologue), and each warp's range in it."""
     out = [
         "// Generated by `python -m hbbft_tpu_torch.ops.ladder_schedule`; do not edit.",
-        "// The step tables of the whole-ladder kernel (see ops/ladder_schedule.py).",
+        "// The step tables of the ladder kernels (see ops/ladder_schedule.py).",
         "",
         "#pragma once",
         "",
@@ -319,50 +400,56 @@ def header() -> str:
         "namespace hb_sched {",
         "",
         "enum : uint8_t { MUL = 0, ADD = 1, SUB = 2, SEL = 3 };",
+        "// the tables, in kG1Range / kG2Range: a kind, the set it reads and the one it writes",
+        "enum : int { " + ", ".join(
+            f"k{kind.capitalize()}{sets} = {i}" for i, (kind, sets) in enumerate(TABLES))
+        + f", kPrologue = {len(TABLES)} }};",
         "",
         "struct __align__(8) Op {",
         "  uint8_t kind, dst, a, b, c;",
-        "  uint8_t wait;  // bit k: source k is another warp's value of this step",
+        "  uint8_t wait;   // bit k: source k is another warp's value; bit 4 + k: a base row (7: dst)",
+        "  uint16_t ver;   // octal digits dst, c, b, a: which write of the slot",
         "};",
     ]
     for group in ("g1", "g2"):
-        s = build(group)
-        win = {k: build(group, k) for k in KINDS[1:]}
+        tables = [build(group, kind, sets) for kind, sets in TABLES]
+        s = tables[0]
         g = group.upper()
-        begins = _begins(s)
+        lines: List[str] = []
+        ranges, n = [], 0
+        for (kind, sets), t in zip(TABLES, tables):
+            rows = []
+            for w, ls in enumerate(t.lists):
+                rows.append((n, n + len(ls)))
+                n += len(ls)
+                lines.append(f"  // {kind} {sets}, warp {w} (a step ~{t.makespan} cycles, "
+                             "simulated)")
+                lines.append(_c_ops(ls))
+            ranges.append(rows)
+        lines += ["  // prologue", _c_ops(s.prologue)]
+        ranges.append([(n, n + len(s.prologue))] * s.warps)
+        total = n + len(s.prologue)
         out += [
             "",
-            f"// {g}: {s.warps} warps a row, {s.n_slots} slots, "
-            f"{len(s.prologue)} prologue and {begins[-1]} step operations, "
-            f"~{s.makespan} cycles a step (simulated)",
+            f"// {g}: {s.warps} warps a row; rows: A 0..{s.n_acc - 1}, B "
+            f"{s.n_acc}..{2 * s.n_acc - 1}, temporaries {2 * s.n_acc}..{s.n_slots - 1}; "
+            f"a base block of {s.entry_rows} rows",
             f"struct {g} {{",
             f"  static constexpr int kWarps = {s.warps};",
             f"  static constexpr int kAcc = {s.n_acc};",
-            f"  static constexpr int kFirstTemp = {s.first_temp};",
             f"  static constexpr int kSlots = {s.n_slots};",
-            f"  static constexpr int kPrologue = {len(s.prologue)};",
-            f"  static constexpr int kOps = {begins[-1]};",
-            "  // the windowed kernel's: slots of its three tables, ops of the others",
-            f"  static constexpr int kWinSlots = "
-            f"{max([s.n_slots] + [w.n_slots for w in win.values()])};",
-            f"  static constexpr int kDblOps = {_begins(win['dbl'])[-1]};",
-            f"  static constexpr int kAddpOps = {_begins(win['addp'])[-1]};",
+            f"  static constexpr int kEntry = {s.entry_rows};  // coordinates, then the prologue's",
+            f"  static constexpr int kFlags = {s.n_slots + s.entry_rows - s.n_acc};  "
+            "// the slots', then the prologue rows'",
             "};",
-            f"__constant__ Op k{g}Prologue[{max(len(s.prologue), 1)}] = {{",
-            _c_ops(s.prologue) if s.prologue else "  {0, 0, 0, 0, 0, 0},",
+            f"__constant__ Op k{g}Ops[{total}] = {{",
+            *lines,
+            "};",
+            f"// [table][warp]: the warp's list, k{g}Ops[begin .. end)",
+            f"__constant__ uint16_t k{g}Range[{len(TABLES) + 1}][{s.warps}][2] = {{",
+            *("  {" + ", ".join(f"{{{b}, {e}}}" for b, e in rows) + "}," for rows in ranges),
             "};",
         ]
-        out += _c_table(f"k{g}", s)
-        for kind, w in win.items():
-            name = f"k{g}{kind.capitalize()}"
-            out += [
-                "",
-                f"// {g} {kind}: {w.n_slots} slots, {_begins(w)[-1]} operations, "
-                f"~{w.makespan} cycles (simulated); the result in slots `{name}Out`",
-            ]
-            out += _c_table(name, w)
-            out.append(f"__constant__ uint8_t {name}Out[{w.n_acc}] = "
-                       f"{{{', '.join(map(str, w.outs))}}};")
     out += ["", "}  // namespace hb_sched", ""]
     return "\n".join(out)
 

@@ -5,11 +5,12 @@ version) is held value-exact at 132 bits against the JAX package's host
 curve, and digit- and inf-exact against the reference's own
 ``scalar_mul_lazy_window``.  The kernel itself (``csrc/ladder_window.cu``)
 runs only on the card; here a lane model of it — the same tables as
-``csrc/ladder_schedule.h``, walked with their ready flags by
-``test_torch_ladder``'s lane model of the step machinery — builds the
-15-entry table (dbl and addp steps, each entry's prologue), then runs
-three dbl steps and one step of the bitwise table a window with the
-selected entry copied into the base block, against the plain version."""
+``csrc/ladder_schedule.h``, walked with their versioned ready flags by
+``test_torch_ladder``'s lane model of the step machinery at K elements a
+warp — builds the 15-entry table (dbl and addp steps, each entry's
+prologue), then runs three dbl steps and one step of the bitwise table a
+window, each reading one accumulator set and writing the other, the
+step's base block each row's own entry, against the plain version."""
 
 import random
 
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-import test_torch_ladder as lanes
+import test_torch_ladder as lanes_mod
 from hbbft_tpu.crypto import bls12_381 as jc
 from hbbft_tpu.ops import gcurve as jg
 from hbbft_tpu_torch.ops import fp381 as F
@@ -80,56 +81,60 @@ def test_window_plain_digit_exact_with_reference():
         assert np.array_equal(np.asarray(r), g.numpy().T)
 
 
-def lane_window(group, pt, bits, base_inf):
-    """``ladder_window.cu`` from its tables on the lane model: the table,
-    then per window three dbl steps and one step of the bitwise table."""
-    step, dbl, addp = (S.build(group, k) for k in S.KINDS)
-    n_acc, first = step.n_acc, step.first_temp
-    slots = lanes.slots_of(step, tuple(torch.zeros_like(c) for c in pt), pt)
-    slots += [None] * (max(dbl.n_slots, addp.n_slots) - len(slots))
-    lanes.lane_prologue(step, slots)
+def lane_window(group, pt, bits, base_inf, K):
+    """``ladder_window.cu`` from its tables on the lane model at K elements
+    a warp: P's prologue; the table of coordinates (entry k − 1 from entry
+    src, copied into A, by an addp or dbl step A→B with entry 0 and P's
+    prologue the base, the result copied out); then per window dbl A→B
+    with the prologue of the window's entry beside it, dbl B→A, dbl A→B and
+    the bitwise table's step B→A whose base is each row's own entry."""
+    tab = {(k, s): S.build(group, k, s) for k, s in
+           (("step", "BA"), ("dbl", "BA"), ("dbl", "AB"), ("addp", "AB"), ("dblpro", "AB"))}
+    step = tab["step", "BA"]
+    lanes = lanes_mod.LANES[K]
+    n = step.n_acc
+    rows = [None] * step.n_slots  # A, B, the temporaries
+    pro = [None] * (step.entry_rows - n)  # the base block's prologue values
+    table = [lanes_mod.comps(n, pt)]  # entry e: (e + 1)·P, coordinates
+    lanes_mod.lane_prologue(lanes, step, lanes_mod.Frame(rows, table[0], pro, n))
 
-    def run(sched, bit=None, inf=None, binf=None):  # only a select reads the flags
-        lanes.walk(sched, lambda op: lanes.run_op(slots, op, bit, inf, binf))
+    def run(sched, base, bit=None, inf=None, binf=None):  # only a select reads the flags
+        fr = lanes_mod.Frame(rows, base, pro, n)
+        lanes_mod.walk(sched, lambda op: lanes_mod.run_op(lanes, fr, op, bit, inf, binf))
 
-    table = [slots[n_acc:first]]  # entry e: (e + 1)·P, the base block's rows
     for k in range(2, 16):
-        slots[:n_acc] = table[k - 2 if k % 2 else k // 2 - 1][:n_acc]
-        sched = addp if k % 2 else dbl
-        run(sched)
-        table.append([slots[o] for o in sched.outs] + [None] * (first - 2 * n_acc))
-    for e in range(1, 15):  # each entry's prologue on the entry's own rows
-        block = [None] * n_acc + table[e]
-        lanes.lane_prologue(step, block)
-        table[e] = block[n_acc:]
+        rows[:n] = table[k - 2 if k % 2 else k // 2 - 1]
+        run(tab["addp" if k % 2 else "dbl", "AB"], table[0])
+        table.append(rows[n:2 * n])
 
-    slots[:n_acc] = [torch.zeros_like(s) for s in slots[:n_acc]]
+    rows[:n] = [torch.zeros_like(x) for x in table[0]]
     inf = torch.ones(base_inf.shape, dtype=torch.bool)
     cols = torch.arange(base_inf.shape[0])
     for idx in G.window_indices(bits):
-        for _ in range(3):
-            run(dbl)
-            slots[:n_acc] = [slots[o] for o in dbl.outs]
         entry = (idx - 1).clamp(min=0)
-        slots[n_acc:first] = [torch.stack([t[r] for t in table])[entry, :, cols].t()
-                              for r in range(first - n_acc)]
-        used = idx != 0
-        run(step, used, inf, base_inf)
-        inf = torch.where(used, inf & base_inf, inf)
-    return lanes.acc_of(step, slots), inf
+        base = [torch.stack([t[c] for t in table])[entry, :, cols].t()
+                for c in range(n)]  # each row's own entry, read in place
+        run(tab["dblpro", "AB"], base)
+        run(tab["dbl", "BA"], None)
+        run(tab["dbl", "AB"], None)
+        fr = lanes_mod.Frame(rows, base, pro, n)
+        inf = lanes_mod.lane_step(lanes, step, fr, inf, base_inf, idx != 0)
+    return lanes_mod.point_of(n, rows[:n]), inf
 
 
+@pytest.mark.parametrize("K", [1, 2, 4])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_lane_model_window_kernel_matches_plain(group):
+def test_lane_model_window_kernel_matches_plain(group, K):
     """8 bits (two windows, zero windows included) at 4 rows, a None base
-    among them: digit- and inf-exact, garbage digits of the ∞ row too."""
+    among them, K elements a warp: digit- and inf-exact, garbage digits of
+    the ∞ row too."""
     rng = random.Random(73 if group == "g1" else 74)
     pts = _points(group, rng, 3) + [None]
     pt, ops = _device(group, pts)
     bits = torch.from_numpy(F.bits_batch([0x5A, 0x07, 0xF0, 0x31], 8))
     base_inf = torch.tensor([p is None for p in pts])
     ref, ref_inf = G.scalar_mul_lazy_window_plain(ops, pt, bits, base_inf)
-    got, got_inf = lane_window(group, pt, bits, base_inf)
+    got, got_inf = lane_window(group, pt, bits, base_inf, K)
     assert torch.equal(got_inf, ref_inf)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
