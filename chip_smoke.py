@@ -2,8 +2,9 @@
 """Drive the PyTorch port of the HoneyBadger epoch and its threshold crypto
 on one NVIDIA card.
 
-    python3 chip_smoke.py            # build, kernel checks, epochs, coin256, dkg256
+    python3 chip_smoke.py            # build, kernel checks, epochs, drivers, coin256, dkg256
     python3 chip_smoke.py --phases kernel_field,kernel_ladder_window   # those (and build)
+    python3 chip_smoke.py --phases qhb64,dhb --dhb-n 16   # the drivers; dhb at N = 16
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -52,30 +53,49 @@ Phases, one JSON line each; any failure exits non-zero:
 9. ``profile``: the device's busy share (kernel time from torch.profiler
    over wall time) and kernel launches, over the whole encrypt phase and
    over ACS + decrypt.
-10. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
+10. ``qhb64``: ``BatchedQueueingHoneyBadger`` at N = 64, 256 transactions
+   of 250 B a node an epoch (65 028-byte contributions) from a queue of
+   1 024 of its own, device encrypt route: 8 ``run_epochs_pipelined``
+   epochs then ``run_to_empty``, and a second one's 8 sequential
+   ``run_epoch``s; every transaction committed once, launch totals of 2
+   windowed ladders and 21 SHA3 batches an epoch, the first pipelined
+   epoch's ciphertexts equal to the native oracle's.
+11. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
    1 024 proposers with the GF(2^16) coder: full delivery (every verdict
    and value; four proposers' shards equal to the host ``encode_np`` and
    their roots to hashlib's), data shards altered after the commit (the
    straggler decode and the re-check stage), a framing fault; and the
    device time of the GF(2^16) encode of one 64-proposer chunk.
-11. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
+12. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
     contributions) through the scale path: keygen, a warm run held against
     the native oracle's ciphertexts, 2 timed runs with launch counts as
     derived from the code (ladder 2, SHA3 16 chunks × 11 Merkle levels,
     Kernel 1 none), and one profiled run for the device's idle share and
     the device time of the GF(2^16) product, SHA3 and the ladders.
-12. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
+13. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
     ``batch_verify_sig_shares`` over 256 signature shares (True; False with
     one share over another message; median of 3, its split into host
     dispatch, ladder wait, fetch + host fold and pairing check; the
     ladders' device ms and launches), the MSMs against the host's sums, and
     ``batch_verify_dec_shares`` over 256 decryption shares (True; False
     with one tampered).
-13. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
+14. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
     the forced device route against ``com.row(3)``, ``commitment_eval`` and
     ``bivar_commitment`` on the forced route against their host values,
-    and the DKG and fold thresholds' crossovers, host against device.
-14. ``kernels``: every kernel with its launches, errors and times.
+    and the sweeps ``crypto/batch.py``'s routing thresholds are set from,
+    host against device, every route's result equal: ``bivar_commitment``
+    at t = 0 … 24, ``commitment_row``/``_eval`` at t = 2 … 181, the RLC
+    fold and the share generation by rows, TPKE encrypt and decrypt of
+    64 000-byte messages at N = 64 and 1 024, and the encrypt without the
+    native oracle.
+15. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 16 (``--dhb-n``):
+    plain epochs with queued transactions, a vote adding one validator,
+    epochs until the change completes, 2 epochs of the new era; the new
+    key set's threshold decrypt, no transaction committed twice, and the
+    driver pickled after the rotation (no CUDA tensor in it) restored with
+    ``device="cpu"`` to the same next batch.  The DKG is host work of
+    order N³, which bounds N here, not the card.
+16. ``kernels``: every kernel with its launches, errors and times.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
 the card's int32 pipes (the ``peak`` line: an ALU and an FMA pipe of 64
@@ -926,6 +946,170 @@ def phase_profile(ctx):
             "acs_decrypt": _busy_share(torch, lambda: ep.run_from_payloads(payloads))}
 
 
+# the qhb64 cell: the N = 64 network of ``epoch``, each node proposing
+# QHB_BATCH transactions of QHB_TX_BYTES (a 65 028-byte contribution, the
+# epoch cell's ~64 000 bytes) from a queue of QHB_FILL of its own
+QHB_BATCH = 256
+QHB_TX_BYTES = 250
+QHB_FILL = 4 * QHB_BATCH
+QHB_EPOCHS = 8
+
+
+def _qhb_fill(drv, ids, seed: int) -> set:
+    """Push QHB_FILL seeded transactions at each node (its id and index in
+    the first 4 bytes, so all are distinct); returns the pushed set."""
+    import struct
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pushed = set()
+    for nid in ids:
+        body = rng.integers(0, 256, (QHB_FILL, QHB_TX_BYTES - 4), dtype=np.uint8)
+        for j in range(QHB_FILL):
+            tx = struct.pack(">HH", nid, j) + body[j].tobytes()
+            drv.push(nid, tx)
+            pushed.add(tx)
+    return pushed
+
+
+def _check_ledger(drv, pushed, what: str) -> None:
+    """Every pushed transaction committed exactly once, nothing else."""
+    if len(drv.committed) != len(set(drv.committed)):
+        raise AssertionError(f"{what}: a transaction was committed twice")
+    if set(drv.committed) != pushed or drv.pending():
+        raise AssertionError(f"{what}: the committed set is not the pushed set")
+
+
+def _spy_epochs(hb, first=None) -> dict:
+    """Record, for each epoch ``hb`` runs, its largest payload and the
+    seconds of its encrypt phase (on whichever thread runs it) and of its
+    ACS + decrypt (the dict returned, lists in epoch order); with
+    ``first``, hold the first epoch's payloads to it."""
+    seen = {"payload_bytes": [], "encrypt_s": [], "acs_decrypt_s": []}
+    encrypt_phase, run_from_payloads = hb.encrypt_phase, hb.run_from_payloads
+
+    def timed_encrypt(*args, **kw):
+        t0 = time.perf_counter()
+        out = encrypt_phase(*args, **kw)
+        seen["encrypt_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_acs(payloads, **kw):
+        seen["payload_bytes"].append(max(len(p) for p in payloads))
+        if first is not None and len(seen["payload_bytes"]) == 1 and list(payloads) != first:
+            raise AssertionError("qhb64: the first epoch's device ciphertexts differ "
+                                 "from the native oracle's")
+        t0 = time.perf_counter()
+        out = run_from_payloads(payloads, **kw)
+        seen["acs_decrypt_s"].append(time.perf_counter() - t0)
+        return out
+
+    hb.encrypt_phase, hb.run_from_payloads = timed_encrypt, timed_acs
+    return seen
+
+
+def phase_qhb64(ctx):
+    """The queueing driver at N = 64 on the card, TPKE encrypt on the
+    device route: 8 ``run_epochs_pipelined`` epochs (the next epoch's
+    encrypt on a worker thread during this epoch's ACS), then
+    ``run_to_empty``; then a fresh driver with the same fill for 8
+    sequential ``run_epoch``s.  Gates: every pushed transaction committed
+    once, launch totals of 2 windowed ladders and 21 SHA3 batches an
+    epoch, and the pipelined run's first ciphertexts equal to the native
+    oracle's under the same scalars."""
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.crypto import tc
+    from hbbft_tpu_torch.netinfo import NetworkInfo
+    from hbbft_tpu_torch.parallel.qhb import BatchedQueueingHoneyBadger
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import _ser_txs
+
+    ids = list(range(N_NODES))
+    nets = NetworkInfo.generate_map(ids, random.Random(7))
+    per_epoch = epoch_launches(N_NODES)
+
+    def driver():
+        return BatchedQueueingHoneyBadger(
+            nets, batch_size=QHB_BATCH, session_id=b"qhb64", device="cuda",
+            encrypt_backend="device")
+
+    driver().run_epoch(random.Random(0))  # warm: empty queues, every kernel once
+
+    def timed_run(fn):
+        """(result, wall s, launches, per-epoch (s, new txs)) of ``fn(on_epoch)``."""
+        marks = []
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(lambda e, new: marks.append((time.perf_counter(), len(new))))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        starts = [t0] + [m[0] for m in marks[:-1]]
+        epochs = [{"s": m[0] - st, "new_txs": m[1]} for st, m in zip(starts, marks)]
+        return out, wall, dict(_build.LAUNCHES), epochs
+
+    # pipelined, then drained
+    drv = driver()
+    pushed = _qhb_fill(drv, ids, 17)
+    rng = random.Random(23)
+    probe = random.Random()
+    probe.setstate(rng.getstate())
+    seed = probe.getrandbits(48)  # the first epoch's seed, as run_epochs_pipelined draws it
+    first = [_ser_txs(drv.queues[nid].choose(random.Random(seed ^ i), QHB_BATCH))
+             for i, nid in enumerate(drv.ids)]
+    pk = nets[0].public_key_set().public_key()
+    native = [ct.to_bytes() for ct in tc.tpke_encrypt_batch(
+        pk, first, random.Random(seed), backend="native", device="cpu")]
+    pipe_split = _spy_epochs(drv.hb, native)
+    _, pipe_s, pipe_launches, pipe_epochs = timed_run(
+        lambda cb: drv.run_epochs_pipelined(rng, QHB_EPOCHS, on_epoch=cb))
+    check_launches(pipe_launches, {k: v * QHB_EPOCHS for k, v in per_epoch.items()},
+                   "qhb64 pipelined")
+    drained, drain_s, drain_launches, drain_epochs = timed_run(
+        lambda cb: drv.run_to_empty(rng, on_epoch=cb))
+    check_launches(drain_launches, {k: v * drained for k, v in per_epoch.items()},
+                   "qhb64 run_to_empty")
+    _check_ledger(drv, pushed, "qhb64 pipelined")
+    ctx["qhb64_launches"] = pipe_launches
+
+    # sequential, same fill
+    seq = driver()
+    if _qhb_fill(seq, ids, 17) != pushed:
+        raise AssertionError("qhb64: the two fills differ")
+    rng = random.Random(23)
+
+    def sequential(cb):
+        for _ in range(QHB_EPOCHS):
+            cb(seq.epoch, seq.run_epoch(rng))
+
+    seq_split = _spy_epochs(seq.hb)
+    _, seq_s, seq_launches, seq_epochs = timed_run(sequential)
+    check_launches(seq_launches, {k: v * QHB_EPOCHS for k, v in per_epoch.items()},
+                   "qhb64 sequential")
+    _check_ledger(seq, pushed, "qhb64 sequential")
+    return {
+        "n": N_NODES, "f": nets[0].num_faulty(), "batch_size": QHB_BATCH,
+        "tx_bytes": QHB_TX_BYTES, "txs_pushed": len(pushed),
+        "contribution_bytes": len(first[0]),
+        "pipelined": {"epochs": QHB_EPOCHS, "s": pipe_s, "epochs_per_s": QHB_EPOCHS / pipe_s,
+                      "txs_per_s": len(pushed) / (pipe_s + drain_s),
+                      "epoch_s": pipe_epochs, **pipe_split,
+                      "launches": pipe_launches,
+                      "then_run_to_empty": {"epochs": drained, "s": drain_s,
+                                            "epoch_s": drain_epochs}},
+        "sequential": {"epochs": QHB_EPOCHS, "s": seq_s, "epochs_per_s": QHB_EPOCHS / seq_s,
+                       "txs_per_s": len(pushed) / seq_s, "epoch_s": seq_epochs,
+                       **seq_split, "launches": seq_launches},
+        "committed_once": True, "ciphertexts_match_native": True,
+        "auto_encrypt_route_n64": "device" if B.device_encrypt_worthwhile(N_NODES, "cuda")
+        else "native",
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
 def _merkle_root_host(leaves) -> bytes:
     """The Merkle root of ``ops/merkle.py``'s tree, with hashlib."""
     level = [hashlib.sha3_256(x).digest() for x in leaves]
@@ -1408,9 +1592,10 @@ def phase_coin256(ctx):
     }
 
 
-def _timed(fn, reps: int = 3):
-    """(result, median seconds of ``reps`` calls after one warm call)."""
-    out = fn()
+def _timed(fn, reps: int = 3, warm: bool = True):
+    """(result, median seconds of ``reps`` calls, after one warm call
+    unless ``warm`` is False)."""
+    out = fn() if warm else None
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -1419,13 +1604,129 @@ def _timed(fn, reps: int = 3):
     return out, statistics.median(times)
 
 
+DKG_THRESHOLDS = ("DEVICE_BIVAR_MIN_BATCH", "DEVICE_ROW_MIN_BATCH", "DEVICE_EVAL_MIN_BATCH")
+# the routing sweeps of dkg256: ``bivar_commitment`` at small degrees (its
+# crossover), ``commitment_row``/``_eval`` above t = 85's 7 396 muls, the
+# fold and the share generation by rows, the TPKE encrypt/decrypt at the
+# epochs' N with their 64 000-byte contributions
+BIVAR_SWEEP_T = (0, 1, 2, 3, 4, 6, 8, 24)
+ROW_SWEEP_T = (2, 8, 24, DKG_T, 127, 181)
+FOLD_SWEEP = (1, 2, 4, 8, 16, 32, 64, 256, 1024, 4096)
+SHARE_GEN_SWEEP = (1, 4, 8, 16, 64, 256, 1024)
+TPKE_SWEEP_N = (N_NODES, N_LARGE)
+# AUTO encrypt without the native oracle: the per-item Python route
+# against the device route, by items
+NO_ORACLE_SWEEP = (1, 2, 4, 16, 64)
+
+
+@contextlib.contextmanager
+def _thresholds(B, names, value):
+    """``crypto/batch.py``'s routing ``names`` set to ``value`` (1 forces
+    the device ladder, a huge value the host) for the block."""
+    saved = {n: getattr(B, n) for n in names}
+    for n in names:
+        setattr(B, n, value)
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            setattr(B, n, v)
+
+
+HOST = 1 << 40  # a threshold no batch reaches
+
+
+def _route_pair(B, names, fn, reps: int, warm: bool = True):
+    """(host result, host s, device result, device s) of ``fn`` with
+    ``names`` forced to each route, each the median of ``reps`` calls (after
+    a warm one unless ``warm`` is False)."""
+    with _thresholds(B, names, HOST):
+        host, host_s = _timed(fn, reps, warm)
+    with _thresholds(B, names, 1):
+        dev, dev_s = _timed(fn, reps, warm)
+    return host, host_s, dev, dev_s
+
+
+def _crossover(rows, size_key: str):
+    """The smallest size from which the device was faster at every larger
+    size measured (None: the host won at the largest)."""
+    won = None
+    for r in sorted(rows, key=lambda r: r[size_key], reverse=True):
+        if r["device_s"] < r["host_s"]:
+            won = r[size_key]
+        else:
+            break
+    return won
+
+
+def _tpke_routes(B, tc, n: int, rng):
+    """Native against device TPKE encrypt and decrypt of ``n`` 64 000-byte
+    messages (bench.py's encrypt calibration: one call each), and the
+    decryption-share generation over the same ciphertexts; every route's
+    result held equal."""
+    sk_set = tc.SecretKeySet.random(1, random.Random(n))
+    pks = sk_set.public_keys()
+    shares = [(i, sk_set.secret_key_share(i)) for i in range(2)]
+    msgs = [rng.randbytes(CONTRIB_BYTES) for _ in range(n)]
+    out = {"n": n, "msg_bytes": CONTRIB_BYTES}
+    cts = {}
+    for backend in ("native", "device"):
+        t0 = time.perf_counter()
+        cts[backend] = tc.tpke_encrypt_batch(pks.public_key(), msgs, random.Random(n + 1),
+                                             backend=backend)
+        out[f"encrypt_{backend}_s"] = time.perf_counter() - t0
+    if [ct.to_bytes() for ct in cts["native"]] != [ct.to_bytes() for ct in cts["device"]]:
+        raise AssertionError(f"TPKE encrypt at n={n}: the device route differs from native")
+    out["auto_route"] = "device" if B.device_encrypt_worthwhile(n, "cuda") else "native"
+    names = ("DEVICE_DECRYPT_MIN_BATCH",)
+    host, out["decrypt_host_s"], dev, out["decrypt_device_s"] = _route_pair(
+        B, names, lambda: B.batch_tpke_decrypt(pks, cts["native"], shares), reps=1,
+        warm=False)
+    if host != msgs or dev != msgs:
+        raise AssertionError(f"TPKE decrypt at n={n}: a route lost a plaintext")
+    payloads = [ct.to_bytes() for ct in cts["native"]]
+    t0 = time.perf_counter()
+    if B.batch_tpke_check_decrypt(pks, payloads, shares) != msgs:
+        raise AssertionError(f"TPKE check-decrypt at n={n} lost a plaintext")
+    out["check_decrypt_s"] = time.perf_counter() - t0
+    return out
+
+
+def _no_oracle_encrypt(tc, c, rng):
+    """TPKE encrypt of NO_ORACLE_SWEEP items of 64 000 bytes without the
+    native oracle (``bls12_381._native`` reporting none): the per-item
+    Python route against the device route, results held equal."""
+    pk = tc.SecretKey.random(rng).public_key()
+    msgs = [rng.randbytes(CONTRIB_BYTES) for _ in range(max(NO_ORACLE_SWEEP))]
+    native = c._native
+    c._native = lambda: None
+    try:
+        rows = []
+        for n in NO_ORACLE_SWEEP:
+            out = {}
+            for backend in ("native", "device"):  # "native" falls back to Python
+                t0 = time.perf_counter()
+                out[backend] = tc.tpke_encrypt_batch(pk, msgs[:n], random.Random(n),
+                                                     backend=backend)
+                out[backend + "_s"] = time.perf_counter() - t0
+            if [x.to_bytes() for x in out["native"]] != [x.to_bytes() for x in out["device"]]:
+                raise AssertionError(f"encrypt without the oracle at n={n}: the routes differ")
+            rows.append({"n": n, "host_s": out["native_s"], "device_s": out["device_s"]})
+    finally:
+        c._native = native
+    return rows
+
+
 def phase_dkg256(ctx):
     """The DKG at N = 256 (t = 85, bench.py's ``_dkg256_commitment``):
-    ``commitment_row(com, 3)`` on the production route and on the forced
-    device route (``DEVICE_DKG_MIN_BATCH = 1``), both against
-    ``com.row(3)``; ``commitment_eval`` and ``bivar_commitment`` on the
-    forced device route against their host values; then the crossovers of
-    the DKG and fold thresholds (host against forced device)."""
+    ``commitment_row(com, 3)`` on the production and the forced device
+    route, both against ``com.row(3)``; ``commitment_eval`` and
+    ``bivar_commitment`` on the forced device route against their host
+    values; then the sweeps that ``crypto/batch.py``'s routing thresholds
+    are set from, host against device: ``bivar_commitment`` by degree,
+    ``commitment_row``/``_eval`` up to t = 181, ``rlc_fold_g1`` and
+    ``batch_decrypt_share_gen`` by rows, and TPKE encrypt and decrypt at
+    N = 64 and 1 024 — every route's result equal."""
     import torch
 
     from hbbft_tpu_torch import _build
@@ -1443,10 +1744,8 @@ def phase_dkg256(ctx):
     host_row_s = time.perf_counter() - t0
 
     row_best, best_s = _timed(lambda: B.commitment_row(com, 3))
-    best_route = "device" if B._device_worthwhile(muls) else "host-horner"
-    saved = B.DEVICE_DKG_MIN_BATCH
-    B.DEVICE_DKG_MIN_BATCH = 1
-    try:
+    best_route = "device" if B._device_worthwhile(muls, B.DEVICE_ROW_MIN_BATCH) else "host-horner"
+    with _thresholds(B, DKG_THRESHOLDS, 1):
         _build.reset_launches()
         row_dev = B.commitment_row(com, 3)
         torch.cuda.synchronize()
@@ -1458,23 +1757,6 @@ def phase_dkg256(ctx):
         t0 = time.perf_counter()
         com_dev = B.bivar_commitment(poly)
         dev_commit_s = time.perf_counter() - t0
-        # the DKG crossover: smaller degrees, host against forced device
-        sweep = []
-        for t in (2, 4, 8, 24, 48):
-            p = tc.BivarPoly.random(t, random.Random(t))
-            t0 = time.perf_counter()
-            cm = p.commitment()
-            h_commit = time.perf_counter() - t0
-            _, d_commit = _timed(lambda: B.bivar_commitment(p), reps=1)
-            t0 = time.perf_counter()
-            cm.row(3)
-            h_row = time.perf_counter() - t0
-            _, d_row = _timed(lambda: B.commitment_row(cm, 3), reps=1)
-            sweep.append({"t": t, "muls": (t + 1) ** 2, "commit_host_s": h_commit,
-                          "commit_device_s": d_commit, "row_host_s": h_row,
-                          "row_device_s": d_row})
-    finally:
-        B.DEVICE_DKG_MIN_BATCH = saved
     t0 = time.perf_counter()
     ev_host = com.evaluate(3, 6)
     host_eval_s = time.perf_counter() - t0
@@ -1488,35 +1770,234 @@ def phase_dkg256(ctx):
     if com_dev.to_bytes() != com.to_bytes():
         raise AssertionError("dkg256: bivar_commitment differs from poly.commitment()")
     ctx["dkg256_launches"] = launches
-    sweep.append({"t": DKG_T, "muls": muls, "commit_host_s": host_commit_s,
-                  "commit_device_s": dev_commit_s, "row_host_s": host_row_s,
-                  "row_device_s": dev_row_s})
 
-    # the fold crossover: rlc_fold_g1's host loop against the device MSM
-    pts = [p for row in com.points for p in row]
+    # bivar_commitment by degree
+    bivar = []
+    for t in BIVAR_SWEEP_T:
+        p = tc.BivarPoly.random(t, random.Random(100 + t))
+        h, h_s, d, d_s = _route_pair(B, ("DEVICE_BIVAR_MIN_BATCH",),
+                                     lambda: B.bivar_commitment(p), reps=3)
+        if h.to_bytes() != d.to_bytes():
+            raise AssertionError(f"bivar_commitment at t={t}: the routes differ")
+        bivar.append({"t": t, "muls": (t + 1) ** 2, "host_s": h_s, "device_s": d_s})
+    # commitment_row / commitment_eval up to t = 181 (the commitments made on
+    # the device); x and y as node indices are, small
+    row, ev = [], []
+    for t in ROW_SWEEP_T:
+        p = tc.BivarPoly.random(t, random.Random(200 + t))
+        with _thresholds(B, ("DEVICE_BIVAR_MIN_BATCH",), 1):
+            cm = B.bivar_commitment(p)
+        # from t = 85 one call a route: seconds each, nothing left to warm
+        reps, warm = (3, True) if t < DKG_T else (1, False)
+        h, h_s, d, d_s = _route_pair(B, ("DEVICE_ROW_MIN_BATCH",),
+                                     lambda: B.commitment_row(cm, 3), reps, warm)
+        if h != d:
+            raise AssertionError(f"commitment_row at t={t}: the routes differ")
+        row.append({"t": t, "muls": (t + 1) ** 2, "host_s": h_s, "device_s": d_s})
+        h, h_s, d, d_s = _route_pair(B, ("DEVICE_EVAL_MIN_BATCH",),
+                                     lambda: B.commitment_eval(cm, 3, 6), reps, warm)
+        if not c.g1_eq(h, d):
+            raise AssertionError(f"commitment_eval at t={t}: the routes differ")
+        ev.append({"t": t, "muls": (t + 1) ** 2, "host_s": h_s, "device_s": d_s})
+
+    # the fold: rlc_fold_g1's host loop against the device MSM
+    pts = [p for r in com.points for p in r]
     fold = []
-    for n in [k for k in (8, 16, 32, 64, 256, 1024, 4096) if k < len(pts)] + [len(pts)]:
+    for n in list(FOLD_SWEEP) + [len(pts)]:
         rs = B._fs_scalars(b"fold-crossover", n)
-        t0 = time.perf_counter()
-        want = None
-        for p, r in zip(pts[:n], rs):
-            want = c.g1_add(want, c.g1_mul(p, r))
-        h = time.perf_counter() - t0
-        got, d = _timed(lambda: B.cache_for("cuda").msm_g1(pts[:n], rs), reps=1)
-        if not c.g1_eq(got, want):
+        h, h_s, d, d_s = _route_pair(B, ("DEVICE_FOLD_MIN_BATCH",),
+                                     lambda: B.rlc_fold_g1(pts[:n], rs), reps=1)
+        if not c.g1_eq(h, d):
             raise AssertionError(f"fold crossover: the device MSM differs at n={n}")
-        fold.append({"n": n, "host_s": h, "device_s": d})
+        fold.append({"n": n, "host_s": h_s, "device_s": d_s})
+
+    # decryption-share generation (x·U for many ciphertexts, no KDF)
+    rng = random.Random(31)
+    sk = tc.SecretKey.random(rng)
+    cts = [sk.public_key().encrypt(b"share-gen", rng) for _ in range(max(SHARE_GEN_SWEEP))]
+    share_gen = []
+    for n in SHARE_GEN_SWEEP:
+        h, h_s, d, d_s = _route_pair(B, ("DEVICE_SHARE_GEN_MIN_BATCH",),
+                                     lambda: B.batch_decrypt_share_gen(sk.scalar, cts[:n]),
+                                     reps=1)
+        if [s.to_bytes() for s in h] != [s.to_bytes() for s in d]:
+            raise AssertionError(f"batch_decrypt_share_gen at n={n}: the routes differ")
+        share_gen.append({"n": n, "host_s": h_s, "device_s": d_s})
+
+    tpke = [_tpke_routes(B, tc, n, random.Random(41)) for n in TPKE_SWEEP_N]
+    no_oracle = _no_oracle_encrypt(tc, c, random.Random(43))
     return {
         "t": DKG_T, "muls": muls, "best_route": best_route, "t_best_s": best_s,
         "t_device_s": dev_row_s, "t_host_s": host_row_s,
         "row_equal_on_both_routes": True, "forced_device_launches": launches,
         "eval_device_s": dev_eval_s, "eval_host_s": host_eval_s, "eval_equal": True,
         "commit_device_s": dev_commit_s, "commit_host_s": host_commit_s, "commit_equal": True,
-        "dkg_crossover": sweep, "fold_crossover": fold,
-        "DEVICE_DKG_MIN_BATCH": B.DEVICE_DKG_MIN_BATCH,
-        "DEVICE_FOLD_MIN_BATCH": B.DEVICE_FOLD_MIN_BATCH,
+        "bivar_crossover": bivar, "row_crossover": row, "eval_crossover": ev,
+        "fold_crossover": fold, "share_gen_crossover": share_gen, "tpke": tpke,
+        "encrypt_without_oracle": no_oracle,
+        "device_from": {"bivar_commitment": _crossover(bivar, "muls"),
+                        "commitment_row": _crossover(row, "muls"),
+                        "commitment_eval": _crossover(ev, "muls"),
+                        "rlc_fold_g1": _crossover(fold, "n"),
+                        "batch_decrypt_share_gen": _crossover(share_gen, "n"),
+                        "encrypt_without_oracle": _crossover(no_oracle, "n")},
+        "thresholds": {n: getattr(B, n) for n in DKG_THRESHOLDS + (
+            "DEVICE_FOLD_MIN_BATCH", "DEVICE_SHARE_GEN_MIN_BATCH", "DEVICE_DECRYPT_MIN_BATCH",
+            "DEVICE_ENCRYPT_MIN_BATCH")},
     }
 
+
+# the dhb cell: a membership change at DHB_N validators (one added: the
+# new set has DHB_N + 1), small transactions; ``--dhb-n`` sets another N
+DHB_N = 16
+DHB_BATCH = 16
+DHB_FILL = 64
+
+
+def _pickle_without_cuda(torch, obj) -> bytes:
+    """``pickle.dumps(obj)``, failing on any CUDA tensor in its state."""
+    import io
+    import pickle
+
+    class Pickler(pickle.Pickler):
+        def persistent_id(self, o):
+            if isinstance(o, torch.Tensor) and o.device.type == "cuda":
+                raise AssertionError("the pickled state holds a CUDA tensor")
+            return None
+
+    buf = io.BytesIO()
+    Pickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+    return buf.getvalue()
+
+
+def _batch_key(b):
+    """A DhbBatch as plain values (era, epoch, contributions, change)."""
+    ch = b.change.change
+    return (b.era, b.epoch, b.contributions, b.change.state,
+            None if ch is None else (ch.kind, ch.new_keys, ch.schedule))
+
+
+def phase_dhb(ctx):
+    """Validator-set change on the card: ``BatchedQueueingDynamicHoneyBadger``
+    over ``BatchedDynamicHoneyBadger`` at N = DHB_N (f = (N-1)//3), 2 plain
+    epochs with queued transactions, a vote to add one validator with a
+    fresh key, epochs until the batch reports ``complete``, then 2 epochs
+    of the new era under the new keys.  Gates: the change completes, the
+    new key set's threshold decrypt works, no transaction is committed
+    twice, and a pickle of ``q`` after the rotation holds no CUDA tensor
+    and, restored with ``device="cpu"``, runs the next epoch to the same
+    batch as the original on the card.  The era change's seconds split into
+    the epochs and the DKG's host work, with the ladder launches."""
+    import pickle
+
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.crypto import tc
+    from hbbft_tpu_torch.netinfo import NetworkInfo
+    from hbbft_tpu_torch.parallel.qhb import BatchedQueueingDynamicHoneyBadger
+
+    n = ctx.get("dhb_n", DHB_N)
+    t0 = time.perf_counter()
+    nets = NetworkInfo.generate_map(list(range(n)), random.Random(7))
+    q = BatchedQueueingDynamicHoneyBadger(
+        nets, batch_size=DHB_BATCH, session_id=b"dhb-chip", rng=random.Random(77),
+        device="cuda")
+    dhb = q.dhb
+    for nid in range(n):
+        for j in range(DHB_FILL):
+            q.push(nid, bytes([nid, j]) * (QHB_TX_BYTES // 2))
+    setup_s = time.perf_counter() - t0
+
+    # the DKG's host work: everything _process_batch does (vote counting,
+    # every member's generate_part, handle_part and handle_ack)
+    process = dhb._process_batch
+    dkg_s = []
+
+    def timed_process(batch_map):
+        t = time.perf_counter()
+        out = process(batch_map)
+        dkg_s.append(time.perf_counter() - t)
+        return out
+
+    dhb._process_batch = timed_process
+    rng = random.Random(5)
+
+    def epoch():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        q.run_epoch(rng)
+        torch.cuda.synchronize()
+        b = dhb.batches[-1]
+        return {"era": b.era, "epoch": b.epoch, "state": b.change.state,
+                "validators": len(b.contributions), "s": time.perf_counter() - t,
+                "process_batch_s": dkg_s[-1]}
+
+    plain = [epoch() for _ in range(2)]
+    if any(e["era"] != 0 or e["state"] != "none" for e in plain):
+        raise AssertionError(f"dhb: plain epochs {plain}")
+    sk_new = tc.SecretKey.random(random.Random(99))
+    for voter in dhb.validators:
+        q.vote_to_add(voter, n, sk_new.public_key(), secret_key=sk_new)
+    _build.reset_launches()
+    change = []
+    while not change or change[-1]["state"] != "complete":
+        if len(change) >= 8:
+            raise AssertionError(f"dhb: the change did not complete: {change}")
+        change.append(epoch())
+    change_launches = dict(_build.LAUNCHES)
+    if dhb.era != 1 or dhb.validators != sorted(range(n + 1), key=repr):
+        raise AssertionError("dhb: the era did not rotate to the new validator set")
+    t_new = dhb.netinfo_map[0].public_key_set().threshold()
+    bivar_on_device = B._device_worthwhile((t_new + 1) ** 2, B.DEVICE_BIVAR_MIN_BATCH)
+    enc_on_device = B.device_encrypt_worthwhile(n, "cuda")
+    want = ladder_launches((n + 1) * bivar_on_device + 2 * len(change) * enc_on_device)
+    got = {k: change_launches[k] for k in LADDER_KERNELS}
+    if got != want:
+        raise AssertionError(f"dhb: ladder launches {got}, expected {want}")
+    era1 = [epoch() for _ in range(2)]
+    if any(e["era"] != 1 or e["validators"] != n + 1 for e in era1):
+        raise AssertionError(f"dhb: new-era epochs {era1}")
+
+    # the new era's threshold decrypt, t + 1 of the new shares
+    pks = dhb.netinfo_map[0].public_key_set()
+    msg = b"dhb new-era threshold decrypt"
+    ct = pks.public_key().encrypt(msg, random.Random(3))
+    shares = {dhb.netinfo_map[nid].node_index(nid):
+              dhb.netinfo_map[nid].secret_key_share().decrypt_share(ct)
+              for nid in dhb.validators[: t_new + 1]}
+    if pks.decrypt(shares, ct) != msg:
+        raise AssertionError("dhb: the new era's threshold decrypt failed")
+    if len(q.committed) != len(set(q.committed)):
+        raise AssertionError("dhb: a transaction was committed twice")
+
+    # snapshot after the rotation: host state only; restored on the CPU it
+    # runs the next epoch to the original's batch
+    del dhb._process_batch  # the timing wrapper above does not pickle
+    blob = _pickle_without_cuda(torch, q)
+    restored = pickle.loads(blob)
+    restored.dhb.device = torch.device("cpu")
+    q.run_epoch(random.Random(8))
+    restored.run_epoch(random.Random(8))
+    if restored.dhb.hb.device.type != "cpu":
+        raise AssertionError("dhb: the restored driver did not run on the CPU")
+    if (_batch_key(restored.dhb.batches[-1]) != _batch_key(dhb.batches[-1])
+            or restored.committed != q.committed):
+        raise AssertionError("dhb: the restored copy's epoch differs from the original's")
+    change_s = sum(e["s"] for e in change)
+    dkg_host_s = sum(e["process_batch_s"] for e in change)
+    return {
+        "n": n, "f": nets[0].num_faulty(), "new_n": n + 1, "new_t": t_new,
+        "setup_s": setup_s, "plain_epochs": plain, "change_epochs": change, "era1_epochs": era1,
+        "era_change_s": change_s,
+        "era_change_split_s": {"dkg_host": dkg_host_s, "epochs": change_s - dkg_host_s},
+        "era_change_launches": change_launches,
+        "bivar_commitment_on_device": bivar_on_device, "encrypt_on_device": enc_on_device,
+        "new_era_decrypt_ok": True, "committed_once": True, "txs_committed": len(q.committed),
+        "snapshot_bytes": len(blob), "snapshot_no_cuda_tensor": True,
+        "restored_cpu_epoch_equal": True,
+    }
 
 
 def phase_kernels(ctx):
@@ -1576,6 +2057,8 @@ def phase_kernels(ctx):
             "shape": f"{ctx['sha3']['main']} (the Merkle leaf level)",
             "n1024": {"launches": launches_l["sha3_256"], **times(sha_l),
                       "shape": f"{ctx['sha3']['main_n1024']} (one chunk's Merkle leaf level)"},
+            "qhb64": {"launches": ctx["qhb64_launches"]["sha3_256"],
+                      "epochs": QHB_EPOCHS, "run": "pipelined"},
         },
         {
             "name": "ladder_lazy", "route": "cuda",
@@ -1611,22 +2094,29 @@ def phase_kernels(ctx):
                        **window_sum([("g1", 2 * 8192)])},
             "n1024": {"launches": launches_l["ladder_window"],
                       **window_sum([("g1", 4 * N_LARGE), ("g2", 2 * N_LARGE)])},
+            "qhb64": {"launches": ctx["qhb64_launches"]["ladder_window"],
+                      "epochs": QHB_EPOCHS, "run": "pipelined"},
         },
     ]
     return {"kernels": kernels}
 
 
-def _phase_arg(argv, names):
+def _parse_args(argv, names):
     """``--phases a,b``: run only those phases (``build`` first), with no
-    ``kernels`` line; no arguments: every phase."""
-    if not argv:
-        return None
-    if len(argv) != 2 or argv[0] != "--phases":
-        raise SystemExit("usage: chip_smoke.py [--phases name,name,...]")
-    only = set(argv[1].split(","))
-    if only - set(names):
-        raise SystemExit(f"unknown phases {sorted(only - set(names))}; phases: {names}")
-    return only | {"build"}
+    ``kernels`` line; no ``--phases``: every phase.  ``--dhb-n N``: the
+    ``dhb`` phase at N validators (default DHB_N).  Returns (phases or
+    None, dhb N)."""
+    usage = "usage: chip_smoke.py [--phases name,name,...] [--dhb-n N]"
+    opts = dict(zip(argv[::2], argv[1::2]))
+    if len(argv) % 2 or set(opts) - {"--phases", "--dhb-n"}:
+        raise SystemExit(usage)
+    only = None
+    if "--phases" in opts:
+        only = set(opts["--phases"].split(","))
+        if only - set(names):
+            raise SystemExit(f"unknown phases {sorted(only - set(names))}; phases: {names}")
+        only |= {"build"}
+    return only, int(opts.get("--dhb-n", DHB_N))
 
 
 def main() -> int:
@@ -1667,10 +2157,10 @@ def main() -> int:
               ("kernel_sha3", phase_kernel_sha3), ("kernel_ladder", phase_kernel_ladder),
               ("kernel_ladder_window", phase_kernel_ladder_window),
               ("ladder_crossover", phase_ladder_crossover),
-              ("epoch", phase_epoch), ("profile", phase_profile),
+              ("epoch", phase_epoch), ("profile", phase_profile), ("qhb64", phase_qhb64),
               ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
-              ("coin256", phase_coin256), ("dkg256", phase_dkg256)]
-    only = _phase_arg(sys.argv[1:], [n for n, _ in phases])
+              ("coin256", phase_coin256), ("dkg256", phase_dkg256), ("dhb", phase_dhb)]
+    only, ctx["dhb_n"] = _parse_args(sys.argv[1:], [n for n, _ in phases])
     ok = True
     for name, fn in phases:
         if only and name not in only:

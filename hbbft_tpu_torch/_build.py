@@ -8,8 +8,10 @@ cross as ``data_ptr()`` ints and the launch goes to PyTorch's current
 stream.  Every C entry point returns the ``cudaGetLastError()`` of its
 launch, and :func:`check` raises on anything but success.
 
-``LAUNCHES`` counts launches per kernel: a wrapper adds one exactly where
-it launches its kernel, so a run can prove the main path went through it.
+``LAUNCHES`` counts launches per kernel: a wrapper calls :func:`count`
+exactly where it launches its kernel, so a run can prove the main path went
+through it.  The count is taken under a lock: the pipelined epoch driver
+launches ladders from a worker thread while the main thread launches SHA3.
 """
 
 from __future__ import annotations
@@ -57,11 +59,19 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``, from any thread."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

@@ -43,12 +43,29 @@ _RAND_BITS = 128
 # half-scalar < 2^128, rounded up to the 4-bit window
 _WINDOW_BITS = 132
 
-# The thresholds below are TPU-derived, not yet measured on the card: they
-# keep the reference's routing until the port's own crossovers are measured.
-# Device decrypt only at this many ciphertexts (host asm wins below).
-DEVICE_DECRYPT_MIN_BATCH = 8192
-# Device encrypt under AUTO routing only at this many items.
-DEVICE_ENCRYPT_MIN_BATCH = 256
+# Routing thresholds: every route is exact, so these choose speed only.
+# A call runs on the device ladder from its threshold's batch size on, and
+# never where the threshold is None.  Each is set from the host-against-
+# device sweeps of chip_smoke.py's ``dkg256`` phase on NVIDIA H100 80GB
+# HBM3, 700.00 W (PERF.md §6 has every cell); beside each, the measured
+# cells on either side of it.
+#
+# ``batch_tpke_decrypt``: None.  With the epochs' 64 000-byte messages the
+# native oracle won at 64 ciphertexts (0.060 s, device 0.098 s) and at
+# 1 024 (1.338 s, device 2.333 s): the device route computes the masks on
+# the card but runs the KDF + XOR in Python, the oracle all of it in C.
+DEVICE_DECRYPT_MIN_BATCH = None
+# ``batch_decrypt_share_gen`` (x·U per ciphertext, no KDF): 4 ciphertexts
+# host 0.00076 s, device 0.00127 (a near tie in a second run: 0.00150,
+# 0.00141); 8: host 0.00207, device 0.00156.
+DEVICE_SHARE_GEN_MIN_BATCH = 8
+# AUTO encrypt on the device only without the native oracle (the native
+# batch won at N = 64, 0.200 s against 0.237, and at N = 1 024, 3.60 s
+# against 4.71), and then from this many items: without the oracle both
+# routes hash to G2 in Python, and the per-item host route also runs its
+# three scalar muls there; the device won at every count measured, from 1
+# item (host 0.0365 s, device 0.0098) to 64 (1.549 s, 0.696).
+DEVICE_ENCRYPT_MIN_BATCH = 1
 # Items per pipeline chunk of the split device encrypt.
 DEVICE_ENCRYPT_CHUNK = 1024
 
@@ -179,11 +196,13 @@ _CACHES: Dict[torch.device, _MsmCache] = {}
 
 
 def cache_for(device) -> _MsmCache:
-    """The ladder launcher for ``device`` (created on first use)."""
+    """The ladder launcher for ``device`` (created on first use; two
+    threads that race here get the same one)."""
     dev = resolve_device(device)
-    if dev not in _CACHES:
-        _CACHES[dev] = _MsmCache(dev)
-    return _CACHES[dev]
+    hit = _CACHES.get(dev)
+    if hit is None:
+        hit = _CACHES.setdefault(dev, _MsmCache(dev))
+    return hit
 
 
 # --------------------------------------------------------------------------
@@ -214,7 +233,8 @@ def batch_tpke_decrypt(pks, cts, secret_shares, device="cuda"):
     """God-view batched TPKE decryption: every share of ciphertext p has
     base U_p, so the Lagrange combine collapses to ONE scalar-mul by the
     master secret per ciphertext — on the device ladder from
-    ``DEVICE_DECRYPT_MIN_BATCH`` ciphertexts, else in the native oracle.
+    ``DEVICE_DECRYPT_MIN_BATCH`` ciphertexts (never while it is None),
+    else in the native oracle.
     Returns the plaintexts, aligned with ``cts``."""
     from hbbft_tpu_torch.crypto import tc
 
@@ -225,7 +245,7 @@ def batch_tpke_decrypt(pks, cts, secret_shares, device="cuda"):
     if not cts:
         return []
     master = _master_for(pks, items)
-    if len(cts) >= DEVICE_DECRYPT_MIN_BATCH:
+    if _device_worthwhile(len(cts), DEVICE_DECRYPT_MIN_BATCH):
         masks = cache_for(device).g1_mul_batch(
             [ct.u for ct in cts], [master] * len(cts)
         )
@@ -287,10 +307,11 @@ def batch_tpke_check_decrypt(pks, payloads, secret_shares, device="cuda"):
 
 
 def device_encrypt_worthwhile(n_items: int, device) -> bool:
-    """AUTO routing for the split device encrypt: only on a CUDA device and
-    only when the native host oracle is missing (the reference's rule for
-    one accelerator; the port's own crossover is not measured yet)."""
-    if n_items < DEVICE_ENCRYPT_MIN_BATCH:
+    """AUTO routing for the split device encrypt: only on a CUDA device,
+    only when the native host oracle is missing (it beat the device route
+    at N = 64 and 1 024 on the card), and from ``DEVICE_ENCRYPT_MIN_BATCH``
+    items."""
+    if not _device_worthwhile(n_items, DEVICE_ENCRYPT_MIN_BATCH):
         return False
     if resolve_device(device).type != "cuda":
         return False
@@ -388,32 +409,43 @@ def batch_tpke_encrypt_device(pk_point, msgs: Sequence[bytes], rs,
 # DKG commitment evaluation (SyncKeyGen hot loops)
 # --------------------------------------------------------------------------
 #
-# ``BivarCommitment.row`` / ``.evaluate`` cost (t+1)² G1 scalar-muls each,
-# per Part and per Ack.  Above a batch threshold the device ladder runs
-# them; below it the host does.  Both are exact: the choice is speed only.
+# ``BivarPoly.commitment`` costs (t+1)² full-width G1 muls per Part;
+# ``BivarCommitment.row`` / ``.evaluate`` cost (t+1)² group operations by a
+# small scalar (a node index) per Part and per Ack on the host, and (t+1)²
+# full-width muls on the device.  Each call has its own threshold: the
+# device ladder runs it from that many muls, the host below.  All routes
+# are exact: the choice is speed only.
 
-# The thresholds below are TPU-derived, as those above (PERF.md has the
-# card's measured crossovers).  DKG muls on the device from (t+1)² of:
-DEVICE_DKG_MIN_BATCH = 16384
-# An RLC fold on the device from this many rows:
-DEVICE_FOLD_MIN_BATCH = 8192
+# Thresholds in (t+1)² muls, measured as those above (NVIDIA H100 80GB
+# HBM3, 700.00 W).  ``bivar_commitment``: 4 muls host 0.00095 s, device
+# 0.00141; 9 muls host 0.00218, device 0.00160.
+DEVICE_BIVAR_MIN_BATCH = 9
+# ``commitment_row``: None.  The host won at every size measured, 9 to
+# 33 124 muls (t = 181: host 1.114 s, device 2.701), and by more as t grows.
+DEVICE_ROW_MIN_BATCH = None
+# ``commitment_eval``: None.  The host won at every size but 625 muls,
+# where the device was 2–3 % faster (t = 24: host 0.0274 s, device
+# 0.0266), and at t = 85 (0.284 s, 0.359), 127 and 181 (1.347 s, 3.126).
+DEVICE_EVAL_MIN_BATCH = None
+# ``rlc_fold_g1`` on the device from this many rows: 4 rows host 0.00072 s,
+# device 0.00126; 8 rows host 0.00170, device 0.00137.
+DEVICE_FOLD_MIN_BATCH = 8
 
 
-def _device_worthwhile(batch_size: int, min_batch: Optional[int] = None) -> bool:
-    """Route ``batch_size`` scalar-muls to the device ladder?"""
-    if min_batch is None:
-        min_batch = DEVICE_DKG_MIN_BATCH
-    return batch_size >= min_batch
+def _device_worthwhile(batch_size: int, min_batch: Optional[int]) -> bool:
+    """Route ``batch_size`` scalar-muls to the device ladder?  Never where
+    the threshold is None."""
+    return min_batch is not None and batch_size >= min_batch
 
 
 def commitment_row(bivar_com, x: int, device="cuda"):
     """``BivarCommitment.row(x)``, on the device ladder from
-    ``DEVICE_DKG_MIN_BATCH`` muls: row(x)[j] = Σ_i points[i][j]·x^i as one
+    ``DEVICE_ROW_MIN_BATCH`` muls: row(x)[j] = Σ_i points[i][j]·x^i as one
     batched ladder over every (i, j), folded over i on the host."""
     from hbbft_tpu_torch.crypto.tc import Commitment, R
 
     t1 = bivar_com.degree() + 1
-    if not _device_worthwhile(t1 * t1):
+    if not _device_worthwhile(t1 * t1, DEVICE_ROW_MIN_BATCH):
         return bivar_com.row(x)
     xp = [pow(x, i, R) for i in range(t1)]
     flat_pts = [bivar_com.points[i][j] for i in range(t1) for j in range(t1)]
@@ -430,11 +462,11 @@ def commitment_row(bivar_com, x: int, device="cuda"):
 
 def commitment_eval(bivar_com, x: int, y: int, device="cuda"):
     """``BivarCommitment.evaluate(x, y)``, on the device ladder from
-    ``DEVICE_DKG_MIN_BATCH`` muls."""
+    ``DEVICE_EVAL_MIN_BATCH`` muls."""
     from hbbft_tpu_torch.crypto.tc import R
 
     t1 = bivar_com.degree() + 1
-    if not _device_worthwhile(t1 * t1):
+    if not _device_worthwhile(t1 * t1, DEVICE_EVAL_MIN_BATCH):
         return bivar_com.evaluate(x, y)
     xp = [pow(x, i, R) for i in range(t1)]
     yp = [pow(y, j, R) for j in range(t1)]
@@ -488,11 +520,11 @@ def bivar_rows_range(bivar_poly, n: int):
 
 def bivar_commitment(bivar_poly, device="cuda"):
     """``BivarPoly.commitment()``, on the device ladder from
-    ``DEVICE_DKG_MIN_BATCH`` coefficients (g1·coeff for all (t+1)²)."""
+    ``DEVICE_BIVAR_MIN_BATCH`` coefficients (g1·coeff for all (t+1)²)."""
     from hbbft_tpu_torch.crypto.tc import BivarCommitment
 
     t1 = bivar_poly.degree() + 1
-    if not _device_worthwhile(t1 * t1):
+    if not _device_worthwhile(t1 * t1, DEVICE_BIVAR_MIN_BATCH):
         return bivar_poly.commitment()
     flat_sc = [bivar_poly.coeffs[i][j] for i in range(t1) for j in range(t1)]
     res = cache_for(device).g1_mul_batch([c.G1_GEN] * (t1 * t1), flat_sc)
@@ -535,12 +567,12 @@ def _fs_scalars(seed: bytes, n: int, offset: int = 0):
 def batch_decrypt_share_gen(secret_scalar: int, cts, device="cuda"):
     """One node's decryption shares ``x_i·U_p`` for many ciphertexts in one
     call, value-identical to per-item ``decrypt_share(ct, check=False)``;
-    the device ladder from ``DEVICE_DECRYPT_MIN_BATCH`` ciphertexts."""
+    the device ladder from ``DEVICE_SHARE_GEN_MIN_BATCH`` ciphertexts."""
     from hbbft_tpu_torch.crypto import tc
 
     if not cts:
         return []
-    if _device_worthwhile(len(cts), DEVICE_DECRYPT_MIN_BATCH):
+    if _device_worthwhile(len(cts), DEVICE_SHARE_GEN_MIN_BATCH):
         pts = cache_for(device).g1_mul_batch([ct.u for ct in cts],
                                              [secret_scalar] * len(cts))
         return [tc.DecryptionShare(p) for p in pts]

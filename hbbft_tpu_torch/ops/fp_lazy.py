@@ -76,5 +76,5 @@ def fp_mul_lazy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             _build.stream_ptr(a),
         )
         _build.check("fp_mul_lazy", rc)
-        _build.LAUNCHES["fp_mul_lazy"] += 1
+        _build.count("fp_mul_lazy")
     return out

@@ -178,5 +178,5 @@ def sha3_256(data: torch.Tensor) -> torch.Tensor:
             _build.stream_ptr(data),
         )
         _build.check("sha3_256", rc)
-        _build.LAUNCHES["sha3_256"] += 1
+        _build.count("sha3_256")
     return out.reshape(*batch, DIGEST_BYTES)

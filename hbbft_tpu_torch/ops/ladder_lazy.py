@@ -145,5 +145,5 @@ def _launch(name: str, pt, bits: torch.Tensor, base_inf: torch.Tensor, fp2: bool
                                                                         ctypes.c_void_p])(
                 *args, k, _build.stream_ptr(x))
         _build.check(name, rc)
-        _build.LAUNCHES[name] += 1
+        _build.count(name)
     return out, inf

@@ -13,7 +13,6 @@ host oracle.
 
 from __future__ import annotations
 
-import functools
 import hashlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -43,6 +42,21 @@ class BatchedAcs:
         self.device = resolve_device(device)
         self.rbc = BatchedRbc(n, f)
         self.aba = BatchedAba(n, f)
+
+    # -- pickling (snapshot/restore support) --------------------------------
+
+    def __getstate__(self):
+        """The round runners are rebuilt from (n, f) on restore, as the
+        reference rebuilds its jit handles; ``device`` stays a plain field."""
+        d = self.__dict__.copy()
+        d.pop("rbc", None)
+        d.pop("aba", None)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.rbc = BatchedRbc(self.n, self.f)
+        self.aba = BatchedAba(self.n, self.f)
 
     def run(
         self,
@@ -149,7 +163,12 @@ class BatchedHoneyBadgerEpoch:
     Encrypt (TPKE, all proposers in one batch; ``encrypt_backend`` picks
     native, device or auto exactly as ``tc.tpke_encrypt_batch``'s
     ``backend``) → batched ACS over the ciphertext bytes → decrypt the
-    accepted contributions (master-scalar fold, one native call)."""
+    accepted contributions (master-scalar fold, one native call).
+
+    A pickled epoch holds host state only: the ACS runner (and through it
+    the coder's device tensors) is dropped and rebuilt at first use on
+    ``device``, a plain field — an epoch pickled on the card restores on a
+    host with no card once its ``device`` is set to ``"cpu"``."""
 
     def __init__(self, netinfo_map: Dict, session_id: bytes = b"batched-hb",
                  compact: bool = False, device="cuda",
@@ -164,12 +183,29 @@ class BatchedHoneyBadgerEpoch:
         self.compact = compact
         self.device = resolve_device(device)
         self.encrypt_backend = encrypt_backend
-        self.acs = BatchedAcs(self.n, self.f, device=self.device)
-        # share verification for callers that check coin shares around this
-        # epoch; the god-view epoch derives its coins from the master scalar
+        self._acs = BatchedAcs(self.n, self.f, device=self.device)
+
+    # -- pickling (snapshot/restore support) --------------------------------
+
+    def __getstate__(self):
+        d = self.__dict__.copy()
+        d["_acs"] = None
+        return d
+
+    @property
+    def acs(self) -> BatchedAcs:
+        """The ACS runner on ``device``, built again after a restore."""
+        if self._acs is None:
+            self._acs = BatchedAcs(self.n, self.f, device=self.device)
+        return self._acs
+
+    def coin_verify(self, pairs, msg: bytes, rng) -> bool:
+        """Share verification for callers that check coin shares around
+        this epoch, on ``device``; the god-view epoch derives its coins from
+        the master scalar."""
         from hbbft_tpu_torch.crypto.batch import batch_verify_sig_shares
 
-        self.coin_verify = functools.partial(batch_verify_sig_shares, device=self.device)
+        return batch_verify_sig_shares(pairs, msg, rng, device=self.device)
 
     def encrypt_phase(self, contributions: Dict, rng,
                       encrypt: bool = True) -> List[bytes]:

@@ -68,6 +68,21 @@ class BatchedRbc:
         # work over GF(2^16), and full delivery takes the scale path
         self.large = n > 256
 
+    # -- pickling (snapshot/restore support) --------------------------------
+
+    def __getstate__(self):
+        """Drop the coder: it is the process's shared ``rs.for_n_f(n, f)``
+        object, whose per-device tensors (the counterpart of the
+        reference's ``_pbits_dev``) must not travel; restore takes the
+        restoring process's coder, which rebuilds them at first use."""
+        d = self.__dict__.copy()
+        d.pop("coder", None)
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self.coder = rs_mod.for_n_f(self.n, self.f)
+
     # ---------------------------------------------------------------- phases
 
     def _decode_batch(self, surv: torch.Tensor, use: torch.Tensor):

@@ -4,8 +4,8 @@
 JAX package's from the same seed; ``poly_eval_range`` and
 ``bivar_rows_range`` against the JAX package's; ``bivar_commitment``,
 ``commitment_row`` and ``commitment_eval`` on the forced device route
-(``DEVICE_DKG_MIN_BATCH = 1``: the GLV-split windowed ladder's plain
-version on CPU tensors) and on the host route, equal to
+(each call's threshold set to 1: the GLV-split windowed ladder's plain
+version on CPU tensors) and on the forced host route, equal to
 ``hbbft_tpu.crypto.batch``'s host-route results, at t = 2–4."""
 
 import random
@@ -60,11 +60,15 @@ def test_commitment_calls_on_both_routes(t, monkeypatch):
     want_com = jb.bivar_commitment(jpoly).to_bytes()
     assert want_com == jcom.to_bytes()
 
-    com = tb.bivar_commitment(poly, device="cpu")  # host route at (t+1)² < 16384
+    thresholds = ("DEVICE_BIVAR_MIN_BATCH", "DEVICE_ROW_MIN_BATCH", "DEVICE_EVAL_MIN_BATCH")
+    for name in thresholds:
+        monkeypatch.setattr(tb, name, 1 << 30)
+    com = tb.bivar_commitment(poly, device="cpu")  # the host route
     assert com.to_bytes() == want_com
     assert _row_bytes(tb.commitment_row(com, 3, device="cpu")) == want_row
-    monkeypatch.setattr(tb, "DEVICE_DKG_MIN_BATCH", 1)
-    assert tb._device_worthwhile((t + 1) ** 2)
+    for name in thresholds:
+        monkeypatch.setattr(tb, name, 1)
+        assert tb._device_worthwhile((t + 1) ** 2, getattr(tb, name))
     assert tb.bivar_commitment(poly, device="cpu").to_bytes() == want_com
     assert _row_bytes(tb.commitment_row(com, 3, device="cpu")) == want_row
     assert jc.g1_to_bytes(tb.commitment_eval(com, 3, 6, device="cpu")) == want_eval

@@ -2,7 +2,7 @@
 
 ``msm_g1``/``msm_g2`` (the windowed ladder's plain version on CPU tensors,
 folded on the host) against the JAX package's host curve; ``rlc_fold_g1``,
-``batch_decrypt_share_gen``, ``verify_ciphertext_batch`` and
+``batch_decrypt_share_gen``, ``batch_tpke_decrypt``, ``verify_ciphertext_batch`` and
 ``verify_dec_share_sets`` against the JAX package's functions on their host
 routes, the port's on both routes (the device route forced by its
 threshold); ``batch_verify_sig_shares``/``batch_verify_dec_shares``, whose
@@ -69,10 +69,12 @@ def test_rlc_fold_and_share_gen_on_both_routes(keys, cts, monkeypatch):
     assert rs == jb._fs_scalars(b"seed", len(pts))
     want = jb.rlc_fold_g1(pts, rs)  # the JAX package's host route
     want_shares = [s.to_bytes() for s in jb.batch_decrypt_share_gen(x, [_j(ct) for ct in cts])]
+    monkeypatch.setattr(tb, "DEVICE_FOLD_MIN_BATCH", None)  # the host routes
+    monkeypatch.setattr(tb, "DEVICE_SHARE_GEN_MIN_BATCH", None)
     assert jc.g1_eq(tb.rlc_fold_g1(pts, rs, device="cpu"), want)
     assert [s.to_bytes() for s in tb.batch_decrypt_share_gen(x, cts, device="cpu")] == want_shares
     monkeypatch.setattr(tb, "DEVICE_FOLD_MIN_BATCH", 1)
-    monkeypatch.setattr(tb, "DEVICE_DECRYPT_MIN_BATCH", 1)
+    monkeypatch.setattr(tb, "DEVICE_SHARE_GEN_MIN_BATCH", 1)
     assert jc.g1_eq(tb.rlc_fold_g1(pts, rs, device="cpu"), want)
     assert [s.to_bytes() for s in tb.batch_decrypt_share_gen(x, cts, device="cpu")] == want_shares
 
@@ -126,3 +128,18 @@ def test_verify_dec_share_sets(keys, cts, monkeypatch):
     assert tb.verify_dec_share_sets(jobs, device="cpu") == want
     monkeypatch.setattr(tb, "DEVICE_FOLD_MIN_BATCH", 1)
     assert tb.verify_dec_share_sets(jobs[:1], device="cpu") == [True]
+
+
+def test_tpke_decrypt_on_both_routes(keys, cts, monkeypatch):
+    """``batch_tpke_decrypt`` on the host route and forced onto the ladder:
+    the JAX package's plaintexts, the altered ciphertext's included."""
+    sks, jsks = keys
+    shares = [(i, sks.secret_key_share(i)) for i in range(T + 1)]
+    jshares = [(i, jsks.secret_key_share(i)) for i in range(T + 1)]
+    want = jb.batch_tpke_decrypt(jsks.public_keys(), [_j(ct) for ct in cts], jshares)
+    assert want[0] == b"payload-0" and want[2] == b"payload-2"
+    pks = sks.public_keys()
+    monkeypatch.setattr(tb, "DEVICE_DECRYPT_MIN_BATCH", None)
+    assert tb.batch_tpke_decrypt(pks, cts, shares, device="cpu") == want
+    monkeypatch.setattr(tb, "DEVICE_DECRYPT_MIN_BATCH", 1)
+    assert tb.batch_tpke_decrypt(pks, cts, shares, device="cpu") == want
