@@ -2,7 +2,7 @@
 """Drive the PyTorch port of the HoneyBadger epoch and its threshold crypto
 on one NVIDIA card.
 
-    python3 chip_smoke.py            # build, kernel checks, epochs, drivers, coin256, dkg256
+    python3 chip_smoke.py            # build, kernel checks, epochs, drivers, mesh, coin256, dkg256
     python3 chip_smoke.py --phases kernel_field,kernel_ladder_window   # those (and build)
     python3 chip_smoke.py --phases qhb64,dhb --dhb-n 16   # the drivers; dhb at N = 16
 
@@ -72,14 +72,25 @@ Phases, one JSON line each; any failure exits non-zero:
     derived from the code (ladder 2, SHA3 16 chunks × 11 Merkle levels,
     Kernel 1 none), and one profiled run for the device's idle share and
     the device time of the GF(2^16) product, SHA3 and the ladders.
-13. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
+13. ``mesh``: the device mesh (``parallel/mesh.py``) under an NCCL world
+    of one rank on cuda:0, its process group destroyed at the end: the N =
+    64 epoch sharded over a 1-D and a 1 × 1 ``("dcn", "ici")`` mesh held
+    equal to the unsharded epoch on the same inputs (ciphertext bytes,
+    batch, ``accepted``; launches of the sharded run), the N = 1024 round
+    through ``make_sharded_rbc_large_run`` equal to the unsharded one
+    (clean, and with data shards altered), coin256 through
+    ``make_sharded_coin_verify`` (True; False with a forged share), the
+    ``STATS`` deltas, sharded and unsharded seconds; then
+    ``graft_entry.dryrun_multichip(1, quick=True)``, its JSON line first.
+    World size 1 moves nothing over a collective: no speed claim.
+14. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
     ``batch_verify_sig_shares`` over 256 signature shares (True; False with
     one share over another message; median of 3, its split into host
     dispatch, ladder wait, fetch + host fold and pairing check; the
     ladders' device ms and launches), the MSMs against the host's sums, and
     ``batch_verify_dec_shares`` over 256 decryption shares (True; False
     with one tampered).
-14. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
+15. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
     the forced device route against ``com.row(3)``, ``commitment_eval`` and
     ``bivar_commitment`` on the forced route against their host values,
     and the sweeps ``crypto/batch.py``'s routing thresholds are set from,
@@ -88,14 +99,14 @@ Phases, one JSON line each; any failure exits non-zero:
     fold and the share generation by rows, TPKE encrypt and decrypt of
     64 000-byte messages at N = 64 and 1 024, and the encrypt without the
     native oracle.
-15. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 16 (``--dhb-n``):
+16. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 16 (``--dhb-n``):
     plain epochs with queued transactions, a vote adding one validator,
     epochs until the change completes, 2 epochs of the new era; the new
     key set's threshold decrypt, no transaction committed twice, and the
     driver pickled after the rotation (no CUDA tensor in it) restored with
     ``device="cpu"`` to the same next batch.  The DKG is host work of
     order N³, which bounds N here, not the card.
-16. ``kernels``: every kernel with its launches, errors and times.
+17. ``kernels``: every kernel with its launches, errors and times.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
 the card's int32 pipes (the ``peak`` line: an ALU and an FMA pipe of 64
@@ -773,6 +784,18 @@ def phase_kernel_ladder(ctx):
             "by_group": groups}
 
 
+def _epoch64_inputs():
+    """The N = 64 epoch's network and 64 000-byte contributions."""
+    import numpy as np
+
+    from hbbft_tpu_torch.netinfo import NetworkInfo
+
+    ids = list(range(N_NODES))
+    nets = NetworkInfo.generate_map(ids, random.Random(7))
+    rng = np.random.default_rng(3)
+    return nets, {i: rng.integers(0, 256, CONTRIB_BYTES, dtype=np.uint8).tobytes() for i in ids}
+
+
 def phase_epoch(ctx):
     import numpy as np
     import torch
@@ -782,10 +805,7 @@ def phase_epoch(ctx):
     from hbbft_tpu_torch.netinfo import NetworkInfo
     from hbbft_tpu_torch.parallel.acs import BatchedHoneyBadgerEpoch
 
-    ids = list(range(N_NODES))
-    nets = NetworkInfo.generate_map(ids, random.Random(7))
-    rng = np.random.default_rng(3)
-    contribs = {i: rng.integers(0, 256, CONTRIB_BYTES, dtype=np.uint8).tobytes() for i in ids}
+    nets, contribs = _epoch64_inputs()
     ep = BatchedHoneyBadgerEpoch(nets, device="cuda", encrypt_backend="device")
 
     # warm run, split so its ciphertexts can be held against the native
@@ -2000,6 +2020,162 @@ def phase_dhb(ctx):
     }
 
 
+def _mesh_epoch64(torch, mesh, nets, contribs):
+    """The N = 64 epoch sharded over ``mesh`` and unsharded, on the same
+    inputs: (sharded seconds by phase, unsharded ones, launches of the
+    timed sharded run)."""
+    import numpy as np
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.parallel.acs import BatchedHoneyBadgerEpoch
+
+    one = BatchedHoneyBadgerEpoch(nets, device="cuda", encrypt_backend="device")
+    sharded = BatchedHoneyBadgerEpoch(nets, encrypt_backend="device", mesh=mesh)
+    for ep in (sharded, one):  # warm: first use of each path
+        ep.run(contribs, random.Random(13))
+
+    def timed(ep):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        payloads = ep.encrypt_phase(contribs, random.Random(14))
+        t_enc = time.perf_counter() - t0
+        batch, detail = ep.run_from_payloads(payloads, timer=time.perf_counter)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        secs = {"epoch_s": time.perf_counter() - t0, "encrypt_s": t_enc, **detail["phase_s"]}
+        return payloads, batch, detail, secs, launches
+
+    pay_m, batch_m, det_m, secs_m, launches = timed(sharded)
+    pay_s, batch_s, det_s, secs_s, _ = timed(one)
+    if pay_m != pay_s:
+        raise AssertionError("mesh epoch: the ciphertext bytes differ from the unsharded epoch's")
+    if not (batch_m == batch_s == contribs):
+        raise AssertionError("mesh epoch: the batch differs from the unsharded epoch's")
+    if not np.array_equal(det_m["accepted"], det_s["accepted"]) or det_m["epochs"] != det_s["epochs"]:
+        raise AssertionError("mesh epoch: accepted or ABA epochs differ from the unsharded epoch's")
+    if launches["ladder_window"] != 2 or launches["sha3_256"] < 1 or \
+            launches["ladder_lazy"] or launches["fp_mul_lazy"]:
+        raise AssertionError(f"mesh epoch launches {launches}")
+    return secs_m, secs_s, launches
+
+
+def _mesh_rbc1024(torch, mesh):
+    """``BatchedRbc(1024, 341)`` at rbc_large's shape through
+    ``make_sharded_rbc_large_run`` and unsharded, clean and with data shards
+    altered after the commit (the straggler decode and the sharded stage
+    B): every result equal.  Each case runs unsharded once first (the
+    straggler decode caches its survivor pattern's matrix), then sharded,
+    unsharded, sharded, unsharded; returns each route's two seconds."""
+    import numpy as np
+
+    from hbbft_tpu_torch.parallel.mesh import make_sharded_rbc_large_run
+    from hbbft_tpu_torch.parallel.rbc import BatchedRbc
+
+    rbc = BatchedRbc(N_LARGE, F_LARGE)
+    rng = np.random.default_rng(21)
+    values = [rng.integers(0, 256, CIPHERTEXT_BYTES, dtype=np.uint8).tobytes()
+              for _ in range(N_LARGE)]
+    data = rbc.upload_framed(values, torch.device("cuda"))
+    vt = torch.zeros((N_LARGE, N_LARGE, data.shape[-1]), dtype=torch.uint8, device=data.device)
+    vt[5, 3, 0], vt[N_LARGE // 2, 0, 7] = 0xFF, 0x01
+    routes = {"sharded": make_sharded_rbc_large_run(rbc, mesh), "unsharded": rbc.run}
+    secs = {}
+    for case, kw in (("clean", {}), ("data_shard_tamper", {"value_tamper": vt})):
+        rbc.run(data, **kw)
+        outs = {}
+        for how in ("sharded", "unsharded") * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[how] = routes[how](data, **kw)
+            torch.cuda.synchronize()
+            secs.setdefault(f"{case}_{how}_s", []).append(time.perf_counter() - t0)
+        for key, val in outs["unsharded"].items():
+            if not np.array_equal(outs["sharded"][key], val):
+                raise AssertionError(f"mesh rbc1024 {case}: {key} differs")
+        if not outs["sharded"]["delivered"].all():
+            raise AssertionError(f"mesh rbc1024 {case}: not every proposer delivered")
+    return secs
+
+
+def _mesh_coin256(mesh):
+    """coin256's shares through ``make_sharded_coin_verify``: True on the
+    honest shares, False with one share over another message; after a warm
+    call each, 3 timed calls of the hook and of the unsharded
+    ``batch_verify_sig_shares``, in turns."""
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.crypto import tc
+    from hbbft_tpu_torch.parallel.mesh import make_sharded_coin_verify
+
+    rng = random.Random(99)
+    sks = tc.SecretKeySet.random(COIN_F, rng)
+    pks = sks.public_keys()
+    msg = b"coin-epoch-42"
+    pairs = [(pks.public_key_share(i), sks.secret_key_share(i).sign(msg))
+             for i in range(COIN_N)]
+    forged, k = list(pairs), COIN_N // 15
+    forged[k] = (pairs[k][0], sks.secret_key_share(k).sign(b"coin-epoch-43"))
+    routes = {"sharded": make_sharded_coin_verify(mesh), "unsharded": B.batch_verify_sig_shares}
+    if routes["sharded"](pairs, msg, rng) is not True or \
+            routes["sharded"](forged, msg, rng) is not False:
+        raise AssertionError("mesh coin256: wrong verdicts")
+    routes["unsharded"](pairs, msg, rng)  # warm
+    secs = {}
+    for how in ("sharded", "unsharded") * 3:
+        t0 = time.perf_counter()
+        if routes[how](pairs, msg, rng) is not True:
+            raise AssertionError(f"mesh coin256: the {how} verify failed")
+        secs.setdefault(f"{how}_s", []).append(time.perf_counter() - t0)
+    return {k: {"median": statistics.median(v), "runs": v} for k, v in secs.items()}
+
+
+def phase_mesh(ctx):
+    """The device mesh on the card: an NCCL world of one rank on cuda:0 (the
+    machine's one card; NCCL refuses two ranks on one card), its process
+    group destroyed at the end.  At world size 1 the collectives move
+    nothing: this shows the mesh code runs on CUDA tensors under NCCL with
+    the kernels, not a speed-up.  Then ``graft_entry.dryrun_multichip(1,
+    quick=True)`` in a process of its own."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from hbbft_tpu_torch import graft_entry
+    from hbbft_tpu_torch.parallel import mesh as mesh_mod
+
+    nets, contribs = _epoch64_inputs()
+    res = {"smi": ctx["smi"]}
+    before = mesh_mod.stats_snapshot()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("nodes",))
+            mesh2d = init_device_mesh("cuda", (1, 1), mesh_dim_names=("dcn", "ici"))
+            secs_m, secs_s, launches = _mesh_epoch64(torch, mesh, nets, contribs)
+            secs_2d, _, launches_2d = _mesh_epoch64(torch, mesh2d, nets, contribs)
+            res["epoch64"] = {"n": N_NODES, "sharded_s": secs_m, "unsharded_s": secs_s,
+                              "sharded_2d_s": secs_2d, "launches": launches,
+                              "launches_2d": launches_2d, "equal": True}
+            res["rbc1024"] = {"n": N_LARGE, "f": F_LARGE, **_mesh_rbc1024(torch, mesh),
+                              "equal": True}
+            res["coin256"] = {"n": COIN_N, "f": COIN_F, **_mesh_coin256(mesh)}
+        finally:
+            dist.destroy_process_group()
+    stats = {ph: {k: v - before[ph][k] for k, v in d.items()}
+             for ph, d in mesh_mod.stats_snapshot().items()}
+    if not all(stats[ph]["collectives"] > 0 for ph in ("rbc", "aba", "coin", "decrypt")):
+        raise AssertionError(f"mesh: a phase's counters did not move: {stats}")
+    res["stats"] = stats
+    ctx["mesh64_launches"] = launches
+    t0 = time.perf_counter()
+    record = graft_entry.dryrun_multichip(1, quick=True)  # prints its JSON line
+    res["dryrun"] = {"seconds": time.perf_counter() - t0, "record": record}
+    return res
+
+
 def phase_kernels(ctx):
     fp_main = ctx["fp"]["rows"][256]
     sha = ctx["sha3"]["shapes"][ctx["sha3"]["main"]]
@@ -2059,6 +2235,8 @@ def phase_kernels(ctx):
                       "shape": f"{ctx['sha3']['main_n1024']} (one chunk's Merkle leaf level)"},
             "qhb64": {"launches": ctx["qhb64_launches"]["sha3_256"],
                       "epochs": QHB_EPOCHS, "run": "pipelined"},
+            "mesh64": {"launches": ctx["mesh64_launches"]["sha3_256"],
+                       "run": "the N = 64 epoch sharded over a 1-rank NCCL mesh"},
         },
         {
             "name": "ladder_lazy", "route": "cuda",
@@ -2096,6 +2274,8 @@ def phase_kernels(ctx):
                       **window_sum([("g1", 4 * N_LARGE), ("g2", 2 * N_LARGE)])},
             "qhb64": {"launches": ctx["qhb64_launches"]["ladder_window"],
                       "epochs": QHB_EPOCHS, "run": "pipelined"},
+            "mesh64": {"launches": ctx["mesh64_launches"]["ladder_window"],
+                       "run": "the N = 64 epoch sharded over a 1-rank NCCL mesh"},
         },
     ]
     return {"kernels": kernels}
@@ -2159,7 +2339,7 @@ def main() -> int:
               ("ladder_crossover", phase_ladder_crossover),
               ("epoch", phase_epoch), ("profile", phase_profile), ("qhb64", phase_qhb64),
               ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
-              ("coin256", phase_coin256), ("dkg256", phase_dkg256), ("dhb", phase_dhb)]
+              ("mesh", phase_mesh), ("coin256", phase_coin256), ("dkg256", phase_dkg256), ("dhb", phase_dhb)]
     only, ctx["dhb_n"] = _parse_args(sys.argv[1:], [n for n, _ in phases])
     ok = True
     for name, fn in phases:

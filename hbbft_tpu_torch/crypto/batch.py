@@ -1,9 +1,10 @@
 """Batched scalar-mul ladders on the device and the threshold-crypto batch
 calls above them.
 
-Counterpart of the single-device parts of ``hbbft_tpu/crypto/batch.py``:
+Counterpart of ``hbbft_tpu/crypto/batch.py``:
 
-- the ladder launcher ``_MsmCache``: the randomized MSM
+- the ladder launcher ``_MsmCache``, on one device or row-sharded over a
+  ``DeviceMesh`` (``cache_for``, ``use_mesh``, ``routed_mesh``): the randomized MSM
   (``_msm_dispatch``/``_msm_collect``, ``msm_g1``/``msm_g2``: one 132-bit
   ladder over 128-bit randomizers, folded on the host) and the GLV/GLS-split
   full-range scalar muls (``_mul_batch_dispatch``/``_mul_batch_collect``,
@@ -73,10 +74,18 @@ DEVICE_ENCRYPT_CHUNK = 1024
 class _MsmCache:
     """Batched lazy-field ladders on one device: the randomized MSM and the
     endomorphism-split scalar muls, each a dispatch/collect pair so that
-    independent ladders overlap on the card."""
+    independent ladders overlap on the card.
 
-    def __init__(self, device):
+    With ``mesh`` set (a ``DeviceMesh`` whose ranks all make the same
+    calls), a ladder whose row count the mesh's size divides runs
+    row-sharded: each rank launches the ladder on its own block of rows,
+    and the rows are gathered in the collect, before the one fetch.  Any
+    other row count runs unsharded on every rank, as in the reference.
+    ``device`` is then the mesh's device for this rank."""
+
+    def __init__(self, device, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     @staticmethod
     def _pad(n: int) -> int:
@@ -91,21 +100,51 @@ class _MsmCache:
         version on the CPU).  On NVIDIA H100 80GB HBM3, 700.00 W it took
         0.58–0.68 of the bitwise kernel's time at every row count from 256
         to 65 536, G1 and G2 (chip_smoke.py's ladder_crossover, PERF.md).
-        Returns the device result (coordinates, inf)."""
+        Returns the device result (coordinates, inf, sharded): this rank's
+        rows alone when ``sharded``."""
         dev = self.device
+        sharded = self.mesh is not None and len(points) % self.mesh.size() == 0
+        if sharded:
+            from hbbft_tpu_torch.parallel.mesh import flat_rank
+
+            per = len(points) // self.mesh.size()
+            lo = flat_rank(self.mesh) * per
+            points, scalars = points[lo: lo + per], scalars[lo: lo + per]
         if group == "g1":
             pt, ops = G.g1_to_device(points, dev), G.LAZY_FP_OPS
         else:
             pt, ops = G.g2_to_device(points, dev), G.LAZY_FP2_OPS
         bits = torch.from_numpy(G.scalars_to_bits(scalars, nbits=_WINDOW_BITS)).to(dev)
         base_inf = torch.tensor([p is None for p in points], device=dev)
-        return G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
+        return (*G.scalar_mul_lazy_window(ops, pt, bits, base_inf), sharded)
 
-    @staticmethod
-    def _fetch(group: str, out, inf):
+    def _gather_rows(self, group: str, out, inf):
+        """Every rank's ladder rows, in row order (the ranks hold contiguous
+        blocks), in the ladder's own layout: G1 coordinates (NL, rows), G2
+        [re | im] (NL, 2·rows)."""
+        from hbbft_tpu_torch.parallel.mesh import gather_nodes
+
+        if group == "g1":
+            cols = list(out)
+        else:
+            cols = [half for co in out for half in co.chunk(2, dim=-1)]
+        nl, per = cols[0].shape
+        local = torch.cat([torch.stack(cols).reshape(-1, per),
+                           inf.to(cols[0].dtype)[None]])
+        full = gather_nodes(local.t(), self.mesh).t()  # (values, rows)
+        cols = full[:-1].reshape(len(cols), nl, full.shape[1])
+        inf = full[-1].bool()
+        if group == "g1":
+            return tuple(cols), inf
+        return tuple(torch.cat([cols[2 * i], cols[2 * i + 1]], dim=-1) for i in range(3)), inf
+
+    def _fetch(self, group: str, out, inf, sharded: bool):
         """ONE device→host copy of a ladder's coordinates and inf flags →
-        (host Jacobian points, canonicalized; inf flags).  The flag is
-        authoritative: a lazy ∞ row's coordinates are garbage."""
+        (host Jacobian points, canonicalized; inf flags), after the rows of
+        a sharded ladder are gathered.  The flag is authoritative: a lazy ∞
+        row's coordinates are garbage."""
+        if sharded:
+            out, inf = self._gather_rows(group, out, inf)
         packed = torch.cat([co.reshape(-1) for co in out] + [inf.to(torch.int32)])
         packed = packed.cpu().numpy()
         n = out[0].numel()
@@ -125,8 +164,8 @@ class _MsmCache:
     def _msm_collect(self, handle):
         """Finish a :meth:`_msm_dispatch` handle: the host point (None =
         infinity), folded on the host from one copy of the ladder rows."""
-        group, n_pts, (out, inf) = handle
-        host_pts, inf_h = self._fetch(group, out, inf)
+        group, n_pts, ladder = handle
+        host_pts, inf_h = self._fetch(group, *ladder)
         host_add = c.g1_add if group == "g1" else c.g2_add
         acc = None
         for i in range(n_pts):
@@ -165,8 +204,8 @@ class _MsmCache:
     def _mul_batch_collect(self, handle):
         """Finish a :meth:`_mul_batch_dispatch` handle: host Jacobian points
         (None = infinity), index-aligned with the dispatched points."""
-        group, B, size, (out, inf) = handle
-        host_pts, inf_h = self._fetch(group, out, inf)  # a·P rows, then b·endo(P)
+        group, B, size, ladder = handle
+        host_pts, inf_h = self._fetch(group, *ladder)  # a·P rows, then b·endo(P)
         host_add = c.g1_add if group == "g1" else c.g2_add
         res = []
         for i in range(B):
@@ -192,17 +231,71 @@ class _MsmCache:
         )
 
 
-_CACHES: Dict[torch.device, _MsmCache] = {}
+_CACHES: Dict[tuple, _MsmCache] = {}
+# the mesh the entry points route through when no cache is pinned
+# (``use_mesh`` / ``routed_mesh``); None: one device
+_ROUTED_MESH = None
+# ``cache_for``'s default: the routed mesh
+ROUTED = object()
 
 
-def cache_for(device) -> _MsmCache:
-    """The ladder launcher for ``device`` (created on first use; two
-    threads that race here get the same one)."""
+def cache_for(device, mesh=ROUTED) -> _MsmCache:
+    """The ladder launcher for ``(device, mesh)`` (created on first use;
+    two threads that race here get the same one).
+
+    ``mesh``: the ``DeviceMesh`` whose ranks share the ladder rows, None
+    for this device alone; by default the mesh routed by :func:`use_mesh`
+    or :class:`routed_mesh`.  A mesh fixes the device (``cuda:<local
+    rank>``, or the CPU for a gloo mesh), and ``device`` must name its
+    type."""
+    if mesh is ROUTED:
+        mesh = _ROUTED_MESH
     dev = resolve_device(device)
-    hit = _CACHES.get(dev)
+    if mesh is not None:
+        from hbbft_tpu_torch.parallel.mesh import mesh_device
+
+        mdev = mesh_device(mesh)
+        if dev.type != mdev.type:
+            raise ValueError(f"device {dev} on a {mesh.device_type} mesh")
+        dev = mdev
+    hit = _CACHES.get((dev, mesh))
     if hit is None:
-        hit = _CACHES.setdefault(dev, _MsmCache(dev))
+        hit = _CACHES.setdefault((dev, mesh), _MsmCache(dev, mesh))
     return hit
+
+
+def use_mesh(mesh) -> None:
+    """Route the ladders of every call that pins no cache through ``mesh``
+    (row-sharded; see :class:`_MsmCache`).  None returns to one device."""
+    global _ROUTED_MESH
+    _ROUTED_MESH = mesh
+
+
+def current_mesh():
+    """The mesh the entry points currently route through (None: one
+    device)."""
+    return _ROUTED_MESH
+
+
+class routed_mesh:
+    """Scope-bound :func:`use_mesh`: route through ``mesh`` inside the
+    ``with`` block and restore the previous routing on exit.  The epoch
+    wraps its encrypt in this, so the mesh given to
+    ``BatchedHoneyBadgerEpoch(mesh=...)`` and the mesh its ladders shard
+    over are one object.  Re-entrant."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self._prev = []
+
+    def __enter__(self):
+        self._prev.append(current_mesh())
+        use_mesh(self.mesh)
+        return self.mesh
+
+    def __exit__(self, *exc):
+        use_mesh(self._prev.pop())
+        return False
 
 
 # --------------------------------------------------------------------------
@@ -229,12 +322,13 @@ def _master_for(pks, items) -> int:
     return master
 
 
-def batch_tpke_decrypt(pks, cts, secret_shares, device="cuda"):
+def batch_tpke_decrypt(pks, cts, secret_shares, device="cuda", cache=None):
     """God-view batched TPKE decryption: every share of ciphertext p has
     base U_p, so the Lagrange combine collapses to ONE scalar-mul by the
     master secret per ciphertext — on the device ladder from
     ``DEVICE_DECRYPT_MIN_BATCH`` ciphertexts (never while it is None),
-    else in the native oracle.
+    else in the native oracle.  ``cache``: a pinned :func:`cache_for`
+    launcher (a mesh's), else ``cache_for(device)``.
     Returns the plaintexts, aligned with ``cts``."""
     from hbbft_tpu_torch.crypto import tc
 
@@ -246,9 +340,8 @@ def batch_tpke_decrypt(pks, cts, secret_shares, device="cuda"):
         return []
     master = _master_for(pks, items)
     if _device_worthwhile(len(cts), DEVICE_DECRYPT_MIN_BATCH):
-        masks = cache_for(device).g1_mul_batch(
-            [ct.u for ct in cts], [master] * len(cts)
-        )
+        cc = cache if cache is not None else cache_for(device)
+        masks = cc.g1_mul_batch([ct.u for ct in cts], [master] * len(cts))
         mask_bytes = [c.g1_to_bytes(m) for m in masks]
     else:
         nat = c._native()
@@ -262,10 +355,12 @@ def batch_tpke_decrypt(pks, cts, secret_shares, device="cuda"):
     return [tc._xor_mask(ct.v, mb) for ct, mb in zip(cts, mask_bytes)]
 
 
-def batch_tpke_check_decrypt(pks, payloads, secret_shares, device="cuda"):
+def batch_tpke_check_decrypt(pks, payloads, secret_shares, device="cuda",
+                             cache=None):
     """Wire-validate + decrypt raw ciphertext payloads in one pass (one
     native call where the framing is exact); semantics of
-    ``Ciphertext.from_bytes`` then :func:`batch_tpke_decrypt`."""
+    ``Ciphertext.from_bytes`` then :func:`batch_tpke_decrypt` (``cache``
+    as there)."""
     from hbbft_tpu_torch.crypto import tc
 
     t = pks.threshold()
@@ -293,12 +388,13 @@ def batch_tpke_check_decrypt(pks, payloads, secret_shares, device="cuda"):
             rest = [i for i in range(len(payloads)) if out[i] is None]
             cts = [tc.Ciphertext.from_bytes(payloads[i]) for i in rest]
             for i, pt in zip(
-                rest, batch_tpke_decrypt(pks, cts, secret_shares, device=device)
+                rest, batch_tpke_decrypt(pks, cts, secret_shares, device=device,
+                                         cache=cache)
             ):
                 out[i] = pt
             return out
     cts = [tc.Ciphertext.from_bytes(p) for p in payloads]
-    return batch_tpke_decrypt(pks, cts, secret_shares, device=device)
+    return batch_tpke_decrypt(pks, cts, secret_shares, device=device, cache=cache)
 
 
 # --------------------------------------------------------------------------
@@ -637,14 +733,16 @@ def verify_dec_share_sets(jobs, device="cuda") -> list:
 
 
 def batch_verify_sig_shares(pairs: Sequence[Tuple[object, object]], msg: bytes,
-                            rng: random.Random, device="cuda") -> bool:
+                            rng: random.Random, device="cuda", cache=None) -> bool:
     """All-or-nothing check of (PublicKeyShare, SignatureShare) pairs: True
     ⟹ every share is valid; False ⟹ at least one is not (the caller
     verifies per share for blame).  Both MSMs are dispatched before either
-    is collected, so the G1 and G2 ladders overlap on the card."""
+    is collected, so the G1 and G2 ladders overlap on the card.
+    ``cache``: a pinned :func:`cache_for` launcher (a mesh's), else
+    ``cache_for(device)``."""
     if not pairs:
         return True
-    cc = cache_for(device)
+    cc = cache if cache is not None else cache_for(device)
     rs = [rng.getrandbits(_RAND_BITS) | 1 for _ in pairs]
     h_sig = cc._msm_dispatch("g2", [s.point for _, s in pairs], rs)
     h_pk = cc._msm_dispatch("g1", [p.point for p, _ in pairs], rs)
@@ -657,14 +755,15 @@ def batch_verify_sig_shares(pairs: Sequence[Tuple[object, object]], msg: bytes,
 
 
 def batch_verify_dec_shares(pairs: Sequence[Tuple[object, object]], ct,
-                            rng: random.Random, device="cuda") -> bool:
+                            rng: random.Random, device="cuda", cache=None) -> bool:
     """All-or-nothing check of (PublicKeyShare, DecryptionShare) pairs
-    against a TPKE ciphertext (U, V, W)."""
+    against a TPKE ciphertext (U, V, W); ``cache`` as in
+    :func:`batch_verify_sig_shares`."""
     from hbbft_tpu_torch.crypto.tc import _hash_ciphertext_point
 
     if not pairs:
         return True
-    cc = cache_for(device)
+    cc = cache if cache is not None else cache_for(device)
     rs = [rng.getrandbits(_RAND_BITS) | 1 for _ in pairs]
     h_d = cc._msm_dispatch("g1", [d.point for _, d in pairs], rs)
     h_pk = cc._msm_dispatch("g1", [p.point for p, _ in pairs], rs)

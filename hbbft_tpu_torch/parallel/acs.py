@@ -1,6 +1,7 @@
 """Batched Asynchronous Common Subset and a full HoneyBadger epoch.
 
-Counterpart of ``hbbft_tpu/parallel/acs.py`` on one device (no mesh):
+Counterpart of ``hbbft_tpu/parallel/acs.py``, on one device or sharded
+over a ``DeviceMesh`` (``mesh=``; see :mod:`hbbft_tpu_torch.parallel.mesh`):
 
     RBC round (parallel.rbc)  →  N×N delivered mask + values
     ABA epochs (parallel.aba) →  accepted instance set
@@ -19,8 +20,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hbbft_tpu_torch import resolve_device
 from hbbft_tpu_torch.parallel.aba import BatchedAba, coin_for, coins_for_epoch
+from hbbft_tpu_torch.parallel.mesh import (
+    make_sharded_aba_step,
+    make_sharded_coin_verify,
+    make_sharded_decrypt,
+    make_sharded_rbc_large_run,
+    make_sharded_rbc_run,
+    runner_device,
+)
 from hbbft_tpu_torch.parallel.rbc import BatchedRbc, frame_values, unframe_value
 
 
@@ -34,29 +42,73 @@ def _hash_coin(p: int, e: int) -> bool:
 
 
 class BatchedAcs:
-    """One ACS instance over an (n, f) network on ``device``."""
+    """One ACS instance over an (n, f) network on ``device``, or with its
+    RBC and ABA rounds sharded over ``mesh`` (a ``DeviceMesh`` whose size
+    divides n; it fixes the device: ``cuda:<local rank>``, or the CPU for a
+    gloo mesh)."""
 
-    def __init__(self, n: int, f: int, device="cuda"):
+    def __init__(self, n: int, f: int, device="cuda", mesh=None):
         self.n = n
         self.f = f
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = runner_device(mesh, device)
         self.rbc = BatchedRbc(n, f)
         self.aba = BatchedAba(n, f)
+        self._build_runners()
 
     # -- pickling (snapshot/restore support) --------------------------------
 
     def __getstate__(self):
         """The round runners are rebuilt from (n, f) on restore, as the
-        reference rebuilds its jit handles; ``device`` stays a plain field."""
+        reference rebuilds its jit handles; ``device`` stays a plain field.
+
+        A mesh-sharded runner refuses, as the reference's does: its mesh
+        binds the process groups of THIS world.  Snapshot a ``mesh=None``
+        runner and build the sharded one again on the restoring world."""
+        if self.mesh is not None:
+            raise TypeError(
+                "cannot snapshot a mesh-sharded BatchedAcs; snapshot the "
+                "mesh=None runner and reconstruct the sharded one from it"
+            )
         d = self.__dict__.copy()
-        d.pop("rbc", None)
-        d.pop("aba", None)
+        for key in ("rbc", "aba", "_rbc_run", "_aba_step"):
+            d.pop(key, None)
         return d
 
     def __setstate__(self, d):
         self.__dict__.update(d)
         self.rbc = BatchedRbc(self.n, self.f)
         self.aba = BatchedAba(self.n, self.f)
+        self._build_runners()
+
+    def _build_runners(self):
+        mesh = self.mesh
+        if mesh is None:
+            self._rbc_run = self.rbc.run
+            self._aba_step = self.aba.epoch_step
+            return
+        # raises unless the mesh's size divides n
+        self._aba_step = make_sharded_aba_step(self.aba, mesh)
+        if not self.rbc.large:
+            self._rbc_run = make_sharded_rbc_run(self.rbc, mesh)
+            return
+        # N > 256: the full-delivery scale path shards its proposer axis;
+        # masked runs at this scale take the unsharded masked path, whose
+        # O(N³) mask tensors callers bound, as in the reference
+        large_run = make_sharded_rbc_large_run(self.rbc, mesh)
+
+        def rbc_run(data, value_mask=None, echo_mask=None, ready_mask=None,
+                    codeword_tamper=None, value_tamper=None, receivers=None):
+            if any(m is not None for m in (value_mask, echo_mask, ready_mask, receivers)):
+                return self.rbc.run(
+                    data, value_mask=value_mask, echo_mask=echo_mask,
+                    ready_mask=ready_mask, codeword_tamper=codeword_tamper,
+                    value_tamper=value_tamper, receivers=receivers,
+                )
+            return large_run(data, codeword_tamper=codeword_tamper,
+                             value_tamper=value_tamper)
+
+        self._rbc_run = rbc_run
 
     def run(
         self,
@@ -88,7 +140,7 @@ class BatchedAcs:
             data = self.rbc.upload_framed(list(values), dev)
         else:
             data = torch.from_numpy(frame_values(list(values), self.rbc.k)).to(dev)
-        out = self.rbc.run(data, **rbc_kwargs)
+        out = self._rbc_run(data, **rbc_kwargs)
         delivered = out["delivered"]
         if coin_fn is None:
             coin_fn = _hash_coin
@@ -113,7 +165,7 @@ class BatchedAcs:
                 coins = torch.tensor(np.array(bits, dtype=bool), device=dev)
             else:
                 coins = torch.zeros((n,), dtype=torch.bool, device=dev)
-            st = self.aba.epoch_step(st, coins)
+            st = self._aba_step(st, coins)
             epochs += 1
 
         if compact:
@@ -165,14 +217,21 @@ class BatchedHoneyBadgerEpoch:
     ``backend``) → batched ACS over the ciphertext bytes → decrypt the
     accepted contributions (master-scalar fold, one native call).
 
+    ``mesh``: a ``DeviceMesh`` the whole epoch rides, every rank running
+    it with the same inputs: the RBC and ABA rounds shard their node axis,
+    the encrypt's ladders (inside ``crypto.batch.routed_mesh``), the coin
+    verification and the decrypt their rows.  It fixes the device, and the
+    result is the one-device result, on every rank.
+
     A pickled epoch holds host state only: the ACS runner (and through it
     the coder's device tensors) is dropped and rebuilt at first use on
     ``device``, a plain field — an epoch pickled on the card restores on a
-    host with no card once its ``device`` is set to ``"cpu"``."""
+    host with no card once its ``device`` is set to ``"cpu"``.  A
+    mesh-attached epoch refuses to pickle."""
 
     def __init__(self, netinfo_map: Dict, session_id: bytes = b"batched-hb",
                  compact: bool = False, device="cuda",
-                 encrypt_backend: Optional[str] = None):
+                 encrypt_backend: Optional[str] = None, mesh=None):
         ids = sorted(netinfo_map.keys(), key=repr)
         self.ids = ids
         self.netinfo_map = netinfo_map
@@ -181,13 +240,22 @@ class BatchedHoneyBadgerEpoch:
         self.f = info0.num_faulty()
         self.session_id = session_id
         self.compact = compact
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = runner_device(mesh, device)
         self.encrypt_backend = encrypt_backend
-        self._acs = BatchedAcs(self.n, self.f, device=self.device)
+        self._acs = BatchedAcs(self.n, self.f, device=self.device, mesh=mesh)
+        if mesh is not None:
+            self._coin_verify = make_sharded_coin_verify(mesh, self.device)
+            self._check_decrypt = make_sharded_decrypt(mesh, self.device)
 
     # -- pickling (snapshot/restore support) --------------------------------
 
     def __getstate__(self):
+        if self.mesh is not None:
+            raise TypeError(
+                "cannot snapshot a mesh-attached BatchedHoneyBadgerEpoch; "
+                "snapshot the mesh=None epoch and re-attach the mesh after restore"
+            )
         d = self.__dict__.copy()
         d["_acs"] = None
         return d
@@ -201,8 +269,11 @@ class BatchedHoneyBadgerEpoch:
 
     def coin_verify(self, pairs, msg: bytes, rng) -> bool:
         """Share verification for callers that check coin shares around
-        this epoch, on ``device``; the god-view epoch derives its coins from
-        the master scalar."""
+        this epoch, on ``device`` (row-sharded over the mesh, when there is
+        one); the god-view epoch derives its coins from the master
+        scalar."""
+        if self.mesh is not None:
+            return self._coin_verify(pairs, msg, rng)
         from hbbft_tpu_torch.crypto.batch import batch_verify_sig_shares
 
         return batch_verify_sig_shares(pairs, msg, rng, device=self.device)
@@ -212,19 +283,18 @@ class BatchedHoneyBadgerEpoch:
         """TPKE-encrypt every proposer's contribution in ONE
         ``tc.tpke_encrypt_batch`` call; returns the per-proposer payloads
         (ciphertext bytes when encrypting)."""
+        from hbbft_tpu_torch.crypto import batch as _cb
         from hbbft_tpu_torch.crypto import tc
 
         contribs = [contributions.get(nid, b"") for nid in self.ids]
         if not encrypt:
             return contribs
         pk = self.netinfo_map[self.ids[0]].public_key_set().public_key()
-        return [
-            ct.to_bytes()
-            for ct in tc.tpke_encrypt_batch(
-                pk, contribs, rng, backend=self.encrypt_backend,
-                device=self.device,
+        with _cb.routed_mesh(self.mesh):
+            cts = tc.tpke_encrypt_batch(
+                pk, contribs, rng, backend=self.encrypt_backend, device=self.device,
             )
-        ]
+        return [ct.to_bytes() for ct in cts]
 
     def run(self, contributions: Dict, rng, encrypt: bool = True,
             session_suffix: bytes = b"", timer=None, **rbc_kwargs):
@@ -319,9 +389,12 @@ class BatchedHoneyBadgerEpoch:
                 )
                 for onid in self.ids[: t + 1]
             ]
-            plaintexts = batch_tpke_check_decrypt(
-                pks, [pl for _, pl in pending], shares, device=self.device
-            )
+            if self.mesh is not None:
+                plaintexts = self._check_decrypt(pks, [pl for _, pl in pending], shares)
+            else:
+                plaintexts = batch_tpke_check_decrypt(
+                    pks, [pl for _, pl in pending], shares, device=self.device
+                )
             for (nid, _), pt in zip(pending, plaintexts):
                 batch[nid] = pt
         if timer is not None:

@@ -38,10 +38,14 @@ ladders where ``crypto/batch.py``'s thresholds route them there.  The DKG
 is host work of order N³ (each member checks N Parts and N² Acks and
 encrypts N² values), so a membership change costs far more than an epoch.
 
+With ``mesh=`` every era's epoch rides one ``DeviceMesh``; an era whose N
+the mesh's size does not divide runs unsharded, as in the reference.
+
 Snapshots: a driver pickles to host state only; the epoch is rebuilt at
 first use on ``device``, a plain field, so a driver pickled on the card
 restores on a host with no card once ``device`` is set to ``"cpu"`` (a
-DKG in progress keeps each member's own ``device`` field).
+DKG in progress keeps each member's own ``device`` field).  A
+mesh-attached driver refuses to pickle.
 """
 
 from __future__ import annotations
@@ -49,10 +53,10 @@ from __future__ import annotations
 import random
 from typing import Dict, List, Optional, Set, Tuple
 
-from hbbft_tpu_torch import resolve_device
 from hbbft_tpu_torch.crypto import tc
 from hbbft_tpu_torch.netinfo import NetworkInfo
 from hbbft_tpu_torch.parallel.acs import BatchedHoneyBadgerEpoch
+from hbbft_tpu_torch.parallel.mesh import runner_device
 from hbbft_tpu_torch.protocols import wire
 from hbbft_tpu_torch.protocols.dynamic_honey_badger import (
     Change,
@@ -81,7 +85,9 @@ class BatchedDynamicHoneyBadger:
     validator AND any candidate a vote may add (the god-view simulator owns
     all key material, like ``NetworkInfo.generate_map`` does).  ``device``
     (default ``"cuda"``, raising without a card) and ``encrypt_backend`` go
-    to every era's epoch; ``device`` also to the DKG's members.
+    to every era's epoch; ``device`` also to the DKG's members.  ``mesh``
+    (a ``DeviceMesh``, which fixes the device) goes to every era's epoch
+    whose N its size divides.
     """
 
     def __init__(
@@ -92,8 +98,10 @@ class BatchedDynamicHoneyBadger:
         rng: Optional[random.Random] = None,
         device="cuda",
         encrypt_backend: Optional[str] = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = runner_device(mesh, device)
         self.encrypt_backend = encrypt_backend
         self.netinfo_map = dict(netinfo_map)
         ids = sorted(self.netinfo_map.keys(), key=repr)
@@ -121,6 +129,14 @@ class BatchedDynamicHoneyBadger:
     # -- pickling (snapshot/restore support) --------------------------------
 
     def __getstate__(self):
+        """A mesh binds the process groups of this world and cannot travel:
+        refuse, as the reference does (the era's epoch may run unsharded,
+        so its own refusal need not fire)."""
+        if self.mesh is not None:
+            raise TypeError(
+                "cannot snapshot a mesh-attached BatchedDynamicHoneyBadger; "
+                "snapshot the mesh=None driver and re-attach the mesh after restore"
+            )
         d = self.__dict__.copy()
         d["_hb"] = None  # rebuilt at first use, on ``device``
         return d
@@ -132,11 +148,15 @@ class BatchedDynamicHoneyBadger:
         """The current era's epoch runner on ``device`` (built at the era's
         first epoch, and again after a restore)."""
         if self._hb is None:
+            # an era whose N the mesh does not divide runs unsharded
+            mesh = self.mesh
+            if mesh is not None and len(self.netinfo_map) % mesh.size():
+                mesh = None
             self._hb = BatchedHoneyBadgerEpoch(
                 self.netinfo_map,
                 session_id=self.session_id + b"/era" + wire.u64(self.era),
                 compact=True, device=self.device,
-                encrypt_backend=self.encrypt_backend,
+                encrypt_backend=self.encrypt_backend, mesh=mesh,
             )
         return self._hb
 

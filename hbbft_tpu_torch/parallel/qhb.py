@@ -8,10 +8,14 @@ transactions removed everywhere, leftovers re-proposed — with every epoch
 executed as one :class:`~hbbft_tpu_torch.parallel.acs.BatchedHoneyBadgerEpoch`
 (TPKE encrypt → batched ACS → master-scalar decrypt) on ``device``.
 
+With ``mesh=`` every epoch rides one ``DeviceMesh`` (see
+:class:`~hbbft_tpu_torch.parallel.acs.BatchedHoneyBadgerEpoch`), every rank
+driving the same queues with the same seeds.
+
 Snapshots: a driver pickles to host state only (queues, ledger, counters);
 the epoch is rebuilt at first use on ``device``, a plain field, so a driver
 pickled on the card restores on a host with no card once ``device`` is set
-to ``"cpu"``.
+to ``"cpu"``.  A mesh-attached driver refuses to pickle.
 """
 
 from __future__ import annotations
@@ -20,11 +24,11 @@ import contextlib
 import random
 import struct
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional
 
-from hbbft_tpu_torch import resolve_device
 from hbbft_tpu_torch.parallel.acs import BatchedHoneyBadgerEpoch
+from hbbft_tpu_torch.parallel.mesh import runner_device
 from hbbft_tpu_torch.protocols.queueing_honey_badger import (
     TransactionQueue,
     _de_txs,
@@ -53,20 +57,42 @@ def _commit_txs(pairs, seen, committed, queues, lock=None):
     return new
 
 
+class _Inline:
+    """An executor that runs each task when it is submitted, in the
+    caller's thread: on a mesh every rank must issue its collectives in one
+    order, which a worker thread beside the main one would not keep."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def submit(self, fn, *args) -> Future:
+        fut: Future = Future()
+        try:
+            fut.set_result(fn(*args))
+        except Exception as exc:  # raised again by fut.result()
+            fut.set_exception(exc)
+        return fut
+
+
 class BatchedQueueingHoneyBadger:
     """Epoch driver: queues + batched epochs until the ledger drains.
 
     ``device`` (default ``"cuda"``, raising without a card) and
     ``encrypt_backend`` (``"native"``, ``"device"`` or ``"auto"``/None, as
-    ``tc.tpke_encrypt_batch`` takes it) go to the epoch."""
+    ``tc.tpke_encrypt_batch`` takes it) go to the epoch, and so does
+    ``mesh`` (a ``DeviceMesh``, which fixes the device)."""
 
     def __init__(self, netinfo_map: Dict, batch_size: int = 100,
                  session_id: bytes = b"batched-qhb", encrypt: bool = True,
                  cost_model=None, device="cuda",
-                 encrypt_backend: Optional[str] = None):
+                 encrypt_backend: Optional[str] = None, mesh=None):
         self.netinfo_map = netinfo_map
         self.session_id = session_id
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = runner_device(mesh, device)
         self.encrypt_backend = encrypt_backend
         self._hb = None
         self.ids = self.hb.ids
@@ -87,6 +113,11 @@ class BatchedQueueingHoneyBadger:
     # -- pickling (snapshot/restore support) --------------------------------
 
     def __getstate__(self):
+        if self.mesh is not None:
+            raise TypeError(
+                "cannot snapshot a mesh-attached BatchedQueueingHoneyBadger; "
+                "snapshot the mesh=None driver and re-attach the mesh after restore"
+            )
         d = self.__dict__.copy()
         d["_queue_lock"] = None  # locks don't pickle; recreated on restore
         d["_hb"] = None  # rebuilt at first use, on ``device``
@@ -103,6 +134,7 @@ class BatchedQueueingHoneyBadger:
             self._hb = BatchedHoneyBadgerEpoch(
                 self.netinfo_map, session_id=self.session_id, compact=True,
                 device=self.device, encrypt_backend=self.encrypt_backend,
+                mesh=self.mesh,
             )
         return self._hb
 
@@ -173,8 +205,10 @@ class BatchedQueueingHoneyBadger:
         Pipelining divergence, as in the reference: epoch e+1's proposals
         are sampled BEFORE epoch e's commits prune the queues; a
         transaction committed in e and re-proposed in e+1 commits once
-        (dedup at the ledger).  Returns the number of transactions newly
-        committed."""
+        (dedup at the ledger).  With a mesh, epoch e+1 is sampled and
+        encrypted at the same point, but in the main thread, before epoch e
+        runs: the ranks' collectives then keep one order.  Returns the
+        number of transactions newly committed."""
         if n_epochs <= 0:
             return 0
         hb = self.hb
@@ -192,7 +226,8 @@ class BatchedQueueingHoneyBadger:
             )
 
         total_new = 0
-        with ThreadPoolExecutor(max_workers=1) as pool:
+        pool = ThreadPoolExecutor(max_workers=1) if self.mesh is None else _Inline()
+        with pool:
             fut = pool.submit(sample_and_encrypt, rng.getrandbits(48))
             for e in range(n_epochs):
                 payloads = fut.result()
@@ -221,20 +256,20 @@ class BatchedQueueingDynamicHoneyBadger:
     transparent to the ledger: queues persist across eras, a removed
     validator stops proposing, an added one starts.
 
-    ``device``, ``encrypt_backend`` and ``secret_keys`` go to the dynamic
-    driver, which owns the device (``self.dhb.device``).
+    ``device``, ``encrypt_backend``, ``secret_keys`` and ``mesh`` go to
+    the dynamic driver, which owns the device (``self.dhb.device``).
     """
 
     def __init__(self, netinfo_map: Dict, batch_size: int = 100,
                  session_id: bytes = b"batched-qdhb", rng=None,
                  cost_model=None, device="cuda",
                  encrypt_backend: Optional[str] = None,
-                 secret_keys: Optional[Dict] = None):
+                 secret_keys: Optional[Dict] = None, mesh=None):
         from hbbft_tpu_torch.parallel.dhb import BatchedDynamicHoneyBadger
 
         self.dhb = BatchedDynamicHoneyBadger(
             netinfo_map, secret_keys=secret_keys, session_id=session_id,
-            rng=rng, device=device, encrypt_backend=encrypt_backend,
+            rng=rng, device=device, encrypt_backend=encrypt_backend, mesh=mesh,
         )
         self.batch_size = batch_size
         self.queues = {nid: TransactionQueue() for nid in self.dhb.validators}

@@ -387,13 +387,14 @@ class BatchedRbc:
         host[~frame_ok] = 0
         return host.reshape(P, k, B), frame_ok
 
-    def finish_large(self, stage_a_out, cs: int):
+    def finish_large(self, stage_a_out, stage_b_fn):
         """The scale path's host decisions between and after its stages:
         thresholds, the straggler decode, stage B (skipped when every
         shard matches its commitment), the ``run`` result.
 
-        ``stage_a_out``: :meth:`large_stage_a`'s tensors; ``cs``: its
-        proposer chunk.  Returns host arrays: ``delivered``, ``fault``, ``echo_count`` and
+        ``stage_a_out``: :meth:`large_stage_a`'s tensors (over every
+        proposer); ``stage_b_fn(data_rec, sent, vv, root)`` runs stage B,
+        on one device or sharded over a mesh.  Returns host arrays: ``delivered``, ``fault``, ``echo_count`` and
         ``ready_count`` as (N, P) broadcast views of one row, ``data``
         (1, P, k, B) (one shared row, ``data_receivers == [0]``), ``root``.
         """
@@ -413,7 +414,7 @@ class BatchedRbc:
             out_data, frame_ok = self._fetch_data_compact(data_rec)
             root_ok = np.ones(ec.shape, dtype=bool)
         else:
-            out_data, root_ok, frame_ok = self.large_stage_b(data_rec, sent, vv, root, cs)
+            out_data, root_ok, frame_ok = stage_b_fn(data_rec, sent, vv, root)
             root_ok = root_ok.cpu().numpy()
             frame_ok = frame_ok.cpu().numpy()
             out_data, _ = self._fetch_data_compact(out_data, frame_ok)
@@ -457,7 +458,8 @@ class BatchedRbc:
         reference's scale path."""
         cs = self._large_chunk_size(data.shape[0])
         return self.finish_large(
-            self.large_stage_a(data, codeword_tamper, value_tamper, cs), cs
+            self.large_stage_a(data, codeword_tamper, value_tamper, cs),
+            lambda dr, sent, vv, root: self.large_stage_b(dr, sent, vv, root, cs),
         )
 
 

@@ -10,6 +10,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "hbbft_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the mesh modules, named so that a move out of the package fails here
+MESH_FILES = [ROOT / "hbbft_tpu_torch" / "parallel" / "mesh.py",
+              ROOT / "hbbft_tpu_torch" / "graft_entry.py"]
 
 
 def _imported_roots(path):
@@ -28,17 +31,35 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.name} imports {sorted(bad)}"
 
 
+@pytest.mark.parametrize("path", MESH_FILES, ids=lambda p: p.name)
+def test_mesh_modules_are_held_to_the_import_rule(path):
+    assert path in PORT_FILES
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     import random
 
+    import types
+
+    from hbbft_tpu_torch import graft_entry
     from hbbft_tpu_torch.crypto import batch
     from hbbft_tpu_torch.netinfo import NetworkInfo
+    from hbbft_tpu_torch.parallel import mesh
     from hbbft_tpu_torch.parallel.acs import BatchedAcs, BatchedHoneyBadgerEpoch
 
     nets = NetworkInfo.generate_map([0, 1, 2, 3], random.Random(1))
+    cuda_mesh = types.SimpleNamespace(device_type="cuda")  # a CUDA DeviceMesh's view
     for make in (
+        lambda: graft_entry.entry(),
+        lambda: graft_entry.dryrun_multichip(1),
+        lambda: graft_entry.start_world(1, print),
+        lambda: mesh.make_sharded_coin_verify(None),
+        lambda: mesh.make_sharded_decrypt(None),
+        lambda: mesh.mesh_device(cuda_mesh),
+        lambda: BatchedHoneyBadgerEpoch(nets, device="cpu", mesh=cuda_mesh),
+        lambda: BatchedAcs(4, 1, device="cpu", mesh=cuda_mesh),
         lambda: BatchedHoneyBadgerEpoch(nets),
         lambda: BatchedAcs(4, 1),
         lambda: BatchedAcs(1024, 341),
@@ -101,3 +122,51 @@ def test_protocols_package_loads_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True, env=env)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_dryrun_multichip_raises_with_fewer_cards_than_asked():
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA cards are present: the dry run can run")
+    from hbbft_tpu_torch.graft_entry import dryrun_multichip
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(2)
+
+
+def test_mesh_attached_runners_refuse_to_pickle(tmp_path):
+    """A mesh binds this world's process groups: the epoch, the ACS runner
+    and the drivers refuse to pickle with one, as the reference's do, and
+    pickle without one."""
+    import pickle
+    import random
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from hbbft_tpu_torch.netinfo import NetworkInfo
+    from hbbft_tpu_torch.parallel import (
+        BatchedAcs,
+        BatchedDynamicHoneyBadger,
+        BatchedHoneyBadgerEpoch,
+        BatchedQueueingDynamicHoneyBadger,
+        BatchedQueueingHoneyBadger,
+    )
+
+    nets = NetworkInfo.generate_map([0, 1, 2, 3], random.Random(1))
+    makers = (
+        lambda m: BatchedHoneyBadgerEpoch(nets, device="cpu", mesh=m),
+        lambda m: BatchedAcs(4, 1, device="cpu", mesh=m),
+        lambda m: BatchedQueueingHoneyBadger(nets, device="cpu", mesh=m),
+        lambda m: BatchedDynamicHoneyBadger(nets, device="cpu", mesh=m),
+        lambda m: BatchedQueueingDynamicHoneyBadger(nets, device="cpu", mesh=m),
+    )
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("nodes",))
+        for make in makers:
+            with pytest.raises(TypeError, match="mesh"):
+                pickle.dumps(make(mesh))
+            pickle.dumps(make(None))
+    finally:
+        dist.destroy_process_group()
