@@ -5,6 +5,7 @@ on one NVIDIA card.
     python3 chip_smoke.py            # build, kernel checks, epochs, drivers, mesh, coin256, dkg256
     python3 chip_smoke.py --phases kernel_field,kernel_ladder_window   # those (and build)
     python3 chip_smoke.py --phases qhb64,dhb --dhb-n 16   # the drivers; dhb at N = 16
+    python3 chip_smoke.py --phases epoch4096,sustained4096   # BASELINE config 5
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -22,9 +23,9 @@ Phases, one JSON line each; any failure exits non-zero:
 4. ``kernel_sha3``: Kernel 2 against its plain version and hashlib,
    byte-exact, over message lengths 0 … 64 KiB and batches up to 4097,
    including the epochs' own shapes (at N = 64 4096 Merkle leaves of one
-   shard each and 2048 interior pairs of 64 bytes; at N = 1024 the 65 536
-   leaves of one 64-proposer chunk), timed there by CUDA events and by the
-   profiler's device time per launch.
+   shard each and 2048 interior pairs of 64 bytes; the leaves of one
+   64-proposer chunk: 65 536 at N = 1024, 262 144 of 2 bytes at N = 4096),
+   timed there by CUDA events and by the profiler's device time per launch.
 5. ``kernel_ladder``: the bitwise whole-ladder kernel against the plain
    stepwise ladder on the card (plain multiply, no kernel), digit-exact and
    inf-exact, at the encrypt shapes of both epochs (N = 64: G1 256 rows,
@@ -36,8 +37,9 @@ Phases, one JSON line each; any failure exits non-zero:
    measured); it stays held against its plain version.
 6. ``kernel_ladder_window``: the 4-bit windowed kernel, the one every path
    runs, against its plain version, digit- and inf-exact, at G1 256 / 37 /
-   4 096 / 16 384 rows (N = 64 and coin256, ragged, N = 1024, dkg256's
-   forced device route) and G2 128 / 256 / 37 / 2 048 rows, with the same
+   4 096 / 16 384 rows (N = 64 and coin256, ragged, N = 1024 and 4096,
+   dkg256's forced device route) and G2 128 / 256 / 37 / 2 048 / 8 192 rows
+   (the last one N = 4096 encrypt in a single chunk), with the same
    edge rows, three rows each against the native oracle; timed with its
    bound, the K it runs at, its registers, spilled bytes, blocks an SM and
    the SASS instructions of a lazy operation at that K.
@@ -72,7 +74,20 @@ Phases, one JSON line each; any failure exits non-zero:
     derived from the code (ladder 2, SHA3 16 chunks × 11 Merkle levels,
     Kernel 1 none), and one profiled run for the device's idle share and
     the device time of the GF(2^16) product, SHA3 and the ladders.
-13. ``mesh``: the device mesh (``parallel/mesh.py``) under an NCCL world
+13. ``epoch4096``: BASELINE config 5, HoneyBadger epochs at N = 4096 (f =
+    1365, one 64-byte transaction a node, ``compact=True``, as bench.py's
+    ``bench_hb_epoch4096``): keygen, the GF(2^16) coder's build (closed-form
+    matrix on the host, bit matrix on the card) with its seconds and device
+    memory, then ``epoch1024``'s gates and times (warm run against the
+    native oracle, 2 timed runs, launches as ``large_epoch_launches``
+    derives them: 4 encrypt chunks of 1 024 proposers, 2 ladders each; SHA3
+    64 chunks × 13 Merkle levels; Kernel 1 none; a profiled run).
+14. ``sustained4096``: bench.py's ``sustained4096`` session on the same
+    network: the encrypt route calibrated (native against device, one warm
+    encrypt phase each, the faster kept), then SUSTAINED_EPOCHS epochs with
+    epoch e+1's encrypt on a worker thread while epoch e runs; every batch
+    equal to the contributions, launches as derived; epochs/s and drift.
+15. ``mesh``: the device mesh (``parallel/mesh.py``) under an NCCL world
     of one rank on cuda:0, its process group destroyed at the end: the N =
     64 epoch sharded over a 1-D and a 1 × 1 ``("dcn", "ici")`` mesh held
     equal to the unsharded epoch on the same inputs (ciphertext bytes,
@@ -83,14 +98,14 @@ Phases, one JSON line each; any failure exits non-zero:
     ``STATS`` deltas, sharded and unsharded seconds; then
     ``graft_entry.dryrun_multichip(1, quick=True)``, its JSON line first.
     World size 1 moves nothing over a collective: no speed claim.
-14. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
+16. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
     ``batch_verify_sig_shares`` over 256 signature shares (True; False with
     one share over another message; median of 3, its split into host
     dispatch, ladder wait, fetch + host fold and pairing check; the
     ladders' device ms and launches), the MSMs against the host's sums, and
     ``batch_verify_dec_shares`` over 256 decryption shares (True; False
     with one tampered).
-15. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
+17. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
     the forced device route against ``com.row(3)``, ``commitment_eval`` and
     ``bivar_commitment`` on the forced route against their host values,
     and the sweeps ``crypto/batch.py``'s routing thresholds are set from,
@@ -99,14 +114,15 @@ Phases, one JSON line each; any failure exits non-zero:
     fold and the share generation by rows, TPKE encrypt and decrypt of
     64 000-byte messages at N = 64 and 1 024, and the encrypt without the
     native oracle.
-16. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 16 (``--dhb-n``):
+18. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 16 (``--dhb-n``):
     plain epochs with queued transactions, a vote adding one validator,
     epochs until the change completes, 2 epochs of the new era; the new
     key set's threshold decrypt, no transaction committed twice, and the
     driver pickled after the rotation (no CUDA tensor in it) restored with
     ``device="cpu"`` to the same next batch.  The DKG is host work of
     order N³, which bounds N here, not the card.
-17. ``kernels``: every kernel with its launches, errors and times.
+19. ``kernels``: every kernel with its launches, errors and times; then the
+    whole run's seconds.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
 the card's int32 pipes (the ``peak`` line: an ALU and an FMA pipe of 64
@@ -196,6 +212,15 @@ LADDER_KERNELS = ("ladder_lazy", "ladder_window")
 N_LARGE = 1024
 F_LARGE = 341
 TIMED_EPOCHS_LARGE = 2
+# BASELINE config 5 (bench.py's ``bench_hb_epoch4096`` and
+# ``sustained4096``): N = 4096, f = 1365 (k = 1366), one 64-byte transaction
+# a node, ciphertexts of 358 B, shards of 2 B; the sustained session's
+# epochs cut from BASELINE's 100 to fit this script's time limit
+N_4096 = 4096
+F_4096 = 1365
+CONTRIB_BYTES_4096 = 64
+TIMED_EPOCHS_4096 = 2
+SUSTAINED_EPOCHS = 8
 
 
 def merkle_root_levels(n: int) -> int:
@@ -526,12 +551,13 @@ def phase_kernel_sha3(ctx):
             msgs = rng.integers(0, 256, (M, L), dtype=np.uint8)
             check(msgs, torch.from_numpy(msgs).to(dev))
     # times at the epochs' shapes: the 4096 Merkle leaves of one N = 64 RBC
-    # round and the 2048 pairs of its first interior level, and the 65 536
-    # leaves of one 64-proposer chunk at N = 1024, each checked again on the
-    # very tensor that is timed
+    # round and the 2048 pairs of its first interior level, and the leaves
+    # of one 64-proposer chunk at N = 1024 (65 536) and at N = 4096
+    # (262 144 of 2 B), each checked again on the very tensor that is timed
     shapes = {}
-    leaf_large = ctx["leaf_bytes_large"]
-    for M, L in ((4096, leaf), (2048, 64), (N_LARGE * 64, leaf_large)):
+    leaf_large, leaf_4096 = ctx["leaf_bytes_large"], ctx["leaf_bytes_4096"]
+    for M, L in ((4096, leaf), (2048, 64), (N_LARGE * 64, leaf_large),
+                 (N_4096 * 64, leaf_4096)):
         msgs = rng.integers(0, 256, (M, L), dtype=np.uint8)
         t = torch.from_numpy(msgs).to(dev)
         check(msgs, t)
@@ -544,7 +570,8 @@ def phase_kernel_sha3(ctx):
                               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
     ctx["sha3"] = {"max_abs_err": max_err, "shapes": shapes,
                    "main": f"4096x{ctx['leaf_bytes']}",
-                   "main_n1024": f"{N_LARGE * 64}x{leaf_large}"}
+                   "main_n1024": f"{N_LARGE * 64}x{leaf_large}",
+                   "main_n4096": f"{N_4096 * 64}x{leaf_4096}"}
     return {"max_abs_err": max_err, "tolerance": 0, "byte_exact": True, "checked": checked,
             "by_shape": shapes}
 
@@ -1248,14 +1275,82 @@ def phase_rbc_large(ctx):
     }
 
 
+def _all_accepted(detail) -> bool:
+    """Every node accepted every instance: the (N, P) ``accepted`` matrix,
+    or under ``compact=True`` one agreed row of all True."""
+    import numpy as np
+
+    if "accepted" in detail:
+        return bool(np.asarray(detail["accepted"]).all())
+    return bool(detail["accepted_agree"] and np.asarray(detail["accepted_row"]).all())
+
+
+def _scale_epochs(tag: str, ep, nets, contribs, warm_seed: int, timed_seeds,
+                  profile_seed: int, expected: dict):
+    """The scale-path epoch's gates and times: a warm run, split so that its
+    ciphertexts can be held against the native oracle's encrypt under the
+    same scalars (that reference encrypt is not part of warm_epoch_s); one
+    timed run a seed of ``timed_seeds``, each with the launch counters reset
+    just before it and read just after, its batch, acceptance and launches
+    checked; then one more epoch under the profiler, against the median
+    wall of the bare timed epochs.  Returns (result fields, launches)."""
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.crypto import tc
+
+    t0 = time.perf_counter()
+    payloads = ep.encrypt_phase(contribs, random.Random(warm_seed))
+    torch.cuda.synchronize()
+    warm_encrypt_s = time.perf_counter() - t0
+    pk = nets[ep.ids[0]].public_key_set().public_key()
+    native = [
+        ct.to_bytes() for ct in tc.tpke_encrypt_batch(
+            pk, [contribs[i] for i in ep.ids], random.Random(warm_seed), backend="native",
+            device="cpu",
+        )
+    ]
+    if payloads != native:
+        raise AssertionError(f"{tag}: device-route ciphertexts differ from the native oracle's")
+    t0 = time.perf_counter()
+    batch, _ = ep.run_from_payloads(payloads)
+    torch.cuda.synchronize()
+    warm_s = warm_encrypt_s + time.perf_counter() - t0
+    if batch != contribs:
+        raise AssertionError(f"{tag}: warm epoch did not return every contribution")
+
+    timed = []
+    for seed in timed_seeds:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        batch, detail = ep.run(contribs, random.Random(seed), timer=time.perf_counter)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        if batch != contribs:
+            raise AssertionError(f"{tag}: timed epoch did not return every contribution")
+        if not _all_accepted(detail):
+            raise AssertionError(f"{tag}: a node did not accept every instance")
+        check_launches(launches, expected, f"{tag} epoch")
+        timed.append({"epoch_s": epoch_s, "phase_s": detail["phase_s"],
+                      "aba_epochs": detail["epochs"]})
+    median = statistics.median(t["epoch_s"] for t in timed)
+    busy = _busy_share(torch, lambda: ep.run(contribs, random.Random(profile_seed)), wall=median)
+    return {
+        "payload_bytes": detail["payload_bytes"], "epoch_s_median": median, "timed": timed,
+        "warm_epoch_s": warm_s, "warm_encrypt_s": warm_encrypt_s,
+        "launches_per_epoch": launches, "batch_ok": True, "all_accepted": True,
+        "ciphertexts_match_native": True, "profiled_epoch": busy,
+    }, launches
+
+
 def phase_epoch1024(ctx):
     """HoneyBadger epochs at N = 1024 (f = 341, 64 000-byte contributions)
     through the scale path, with the TPKE encrypt ladders on the card."""
     import numpy as np
     import torch
 
-    from hbbft_tpu_torch import _build
-    from hbbft_tpu_torch.crypto import tc
     from hbbft_tpu_torch.netinfo import NetworkInfo
     from hbbft_tpu_torch.parallel.acs import BatchedHoneyBadgerEpoch
 
@@ -1269,68 +1364,164 @@ def phase_epoch1024(ctx):
     rng = np.random.default_rng(13)
     contribs = {i: rng.integers(0, 256, CONTRIB_BYTES, dtype=np.uint8).tobytes() for i in ids}
     ep = BatchedHoneyBadgerEpoch(nets, device="cuda", encrypt_backend="device")
-    expected = large_epoch_launches(N_LARGE)
-
-    # warm run, split so its ciphertexts can be held against the native
-    # oracle's encrypt under the same scalars (not part of warm_epoch_s)
-    t0 = time.perf_counter()
-    payloads = ep.encrypt_phase(contribs, random.Random(31))
-    torch.cuda.synchronize()
-    warm_encrypt_s = time.perf_counter() - t0
-    pk = nets[0].public_key_set().public_key()
-    native = [
-        ct.to_bytes() for ct in tc.tpke_encrypt_batch(
-            pk, [contribs[i] for i in ep.ids], random.Random(31), backend="native",
-            device="cpu",
-        )
-    ]
-    if payloads != native:
-        raise AssertionError("N = 1024: device-route ciphertexts differ from the native oracle's")
-    t0 = time.perf_counter()
-    batch, _ = ep.run_from_payloads(payloads)
-    torch.cuda.synchronize()
-    warm_s = warm_encrypt_s + time.perf_counter() - t0
-    if batch != contribs:
-        raise AssertionError("N = 1024: warm epoch did not return every contribution")
-
-    timed = []
-    for j in range(TIMED_EPOCHS_LARGE):
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        batch, detail = ep.run(contribs, random.Random(32 + j), timer=time.perf_counter)
-        torch.cuda.synchronize()
-        epoch_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
-        if batch != contribs:
-            raise AssertionError("N = 1024: timed epoch did not return every contribution")
-        if not np.asarray(detail["accepted"]).all():
-            raise AssertionError("N = 1024: a node did not accept every instance")
-        check_launches(launches, expected, "N = 1024 epoch")
-        timed.append({"epoch_s": epoch_s, "phase_s": detail["phase_s"],
-                      "aba_epochs": detail["epochs"]})
-    ctx["launches_n1024"] = launches
-    median = statistics.median(t["epoch_s"] for t in timed)
-    # the device's share: one more epoch under the profiler, against the
-    # median wall of the bare timed epochs
-    busy = _busy_share(torch, lambda: ep.run(contribs, random.Random(40)), wall=median)
+    res, ctx["launches_n1024"] = _scale_epochs(
+        "N = 1024", ep, nets, contribs, 31, range(32, 32 + TIMED_EPOCHS_LARGE), 40,
+        large_epoch_launches(N_LARGE))
     return {
         "n": N_LARGE, "f": F_LARGE, "k": ep.acs.rbc.k, "contribution_bytes": CONTRIB_BYTES,
-        "payload_bytes": detail["payload_bytes"], "keygen_s": keygen_s,
-        "epoch_s_median": median, "timed": timed,
-        "warm_epoch_s": warm_s, "warm_encrypt_s": warm_encrypt_s,
-        "launches_per_epoch": launches, "batch_ok": True, "all_accepted": True,
-        "ciphertexts_match_native": True, "profiled_epoch": busy,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "keygen_s": keygen_s, **res, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def _net4096(ctx):
+    """BASELINE config 5's network and contributions, made once a run as
+    bench.py's ``_bench_hb_epoch_large(4096, 64, …)`` and ``sustained4096``
+    make them: the keys from ``random.Random(23)``, then 64 bytes a node
+    from the same generator.  Returns (nets, contributions, keygen s)."""
+    from hbbft_tpu_torch.netinfo import NetworkInfo
+
+    if "net4096" not in ctx:
+        rng = random.Random(23)
+        t0 = time.perf_counter()
+        nets = NetworkInfo.generate_map(list(range(N_4096)), rng)
+        keygen_s = time.perf_counter() - t0
+        if nets[0].num_faulty() != F_4096:
+            raise AssertionError(f"f = {nets[0].num_faulty()}, expected {F_4096}")
+        contribs = {i: bytes(rng.randrange(256) for _ in range(CONTRIB_BYTES_4096))
+                    for i in range(N_4096)}
+        ctx["net4096"] = (nets, contribs, keygen_s)
+    return ctx["net4096"]
+
+
+def phase_epoch4096(ctx):
+    """BASELINE config 5: HoneyBadger epochs at N = 4096 (f = 1365, 64-byte
+    contributions, ``compact=True``, as bench.py's ``bench_hb_epoch4096``)
+    through the scale path, the TPKE encrypt ladders on the card; the
+    GF(2^16) coder's build (host matrix, then the bit matrix on the card)
+    timed, with its device memory."""
+    import torch
+
+    from hbbft_tpu_torch.ops import rs
+    from hbbft_tpu_torch.parallel.acs import BatchedHoneyBadgerEpoch
+
+    nets, contribs, keygen_s = _net4096(ctx)
+    torch.cuda.synchronize()
+    dev = torch.device("cuda", torch.cuda.current_device())  # the coder's key: a tensor's device
+    t0 = time.perf_counter()
+    coder = rs.for_n_f(N_4096, F_4096)
+    coder_host_s = time.perf_counter() - t0
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bits, _ = coder._on(dev)
+    torch.cuda.synchronize()
+    coder_device_s = time.perf_counter() - t0
+    coder_mem = {"resident_bytes": torch.cuda.memory_allocated() - before,
+                 "peak_bytes": torch.cuda.max_memory_allocated() - before,
+                 "bit_matrix_shape": list(bits.shape)}
+    torch.cuda.reset_peak_memory_stats()
+    ep = BatchedHoneyBadgerEpoch(nets, session_id=b"hb-epoch4096", compact=True,
+                                 device="cuda", encrypt_backend="device")
+    if ep.acs.rbc.coder is not coder:
+        raise AssertionError("the N = 4096 epoch did not take the coder built here")
+    res, ctx["launches_n4096"] = _scale_epochs(
+        "N = 4096", ep, nets, contribs, 1, range(2, 2 + TIMED_EPOCHS_4096), 2 + TIMED_EPOCHS_4096,
+        large_epoch_launches(N_4096))
+    return {
+        "n": N_4096, "f": F_4096, "k": ep.acs.rbc.k, "contribution_bytes": CONTRIB_BYTES_4096,
+        "compact": True, "keygen_s": keygen_s, "coder_host_s": coder_host_s,
+        "coder_device_s": coder_device_s, "coder_device_mem": coder_mem,
+        **res, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def phase_sustained4096(ctx):
+    """A sustained N = 4096 session (bench.py's ``sustained4096``): the
+    encrypt route calibrated (one warm encrypt phase timed a route, the
+    faster kept), then SUSTAINED_EPOCHS epochs with epoch e+1's encrypt on a
+    one-worker thread pool while epoch e's ACS and decrypt run; every batch
+    equal to the contributions, every instance accepted, the launches of
+    the whole session as the code implies."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.parallel.acs import BatchedHoneyBadgerEpoch
+
+    nets, contribs, _ = _net4096(ctx)
+    torch.cuda.reset_peak_memory_stats()
+    hb = BatchedHoneyBadgerEpoch(nets, session_id=b"sustained4096", compact=True, device="cuda")
+    calib = {}
+    for route in ("native", "device"):
+        hb.encrypt_backend = route
+        hb.encrypt_phase(contribs, random.Random(7))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hb.encrypt_phase(contribs, random.Random(7))
+        torch.cuda.synchronize()
+        calib[route] = time.perf_counter() - t0
+    route = min(calib, key=calib.get)
+    hb.encrypt_backend = route
+
+    enc_times = []
+
+    def encrypt_timed(seed):
+        t0 = time.perf_counter()
+        out = hb.encrypt_phase(contribs, random.Random(seed))
+        enc_times.append(time.perf_counter() - t0)
+        return out
+
+    times, phases = [], []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(encrypt_timed, 100)
+        for e in range(SUSTAINED_EPOCHS):
+            t0 = time.perf_counter()
+            payloads = fut.result()
+            if e + 1 < SUSTAINED_EPOCHS:
+                fut = pool.submit(encrypt_timed, 100 + e + 1)
+            batch, detail = hb.run_from_payloads(payloads, session_suffix=b"/e%d" % e,
+                                                 timer=time.perf_counter)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if batch != contribs:
+                raise AssertionError(f"sustained epoch {e} did not return every contribution")
+            if not _all_accepted(detail):
+                raise AssertionError(f"sustained epoch {e}: a node did not accept every instance")
+            phases.append(detail["phase_s"])
+    launches = dict(_build.LAUNCHES)
+    per_epoch = large_epoch_launches(N_4096)
+    if route == "native":
+        per_epoch.update(ladder_launches(0))
+    check_launches(launches, {k: v * SUSTAINED_EPOCHS for k, v in per_epoch.items()},
+                   "sustained N = 4096 session")
+    ctx["launches_sustained4096"] = launches
+    warm = times[1:] or times
+    median_warm = statistics.median(warm)
+    return {
+        "n": N_4096, "f": F_4096, "contribution_bytes": CONTRIB_BYTES_4096, "compact": True,
+        "epochs": len(times), "epochs_baseline": 100, "pipelined": True,
+        "epochs_per_s": 1 / median_warm, "t_first_s": times[0], "t_median_warm_s": median_warm,
+        "t_min_s": min(times), "t_max_s": max(times),
+        "drift_pct": 100 * (warm[-1] - warm[0]) / warm[0] if len(warm) > 1 else 0.0,
+        "t_encrypt_median_s": statistics.median(enc_times), "t_encrypt_s": enc_times,
+        "encrypt_backend": route, "encrypt_calibration_s": calib,
+        "epoch_s": times, "phase_s": phases, "launches": launches, "batch_ok": True,
+        "all_accepted": True, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
     }
 
 
 # the windowed kernel's cases: (rows, timed) — the N = 64 epoch's and
-# coin256's shapes, a ragged count, the N = 1024 epoch's encrypt shapes,
-# and dkg256's forced device route (its 7 396 GLV-split muls padded to
-# 8 192, doubled by the split: 16 384 rows)
+# coin256's shapes, a ragged count, the encrypt shapes of the N = 1024 and
+# N = 4096 epochs (both encrypt in chunks of DEVICE_ENCRYPT_CHUNK = 1 024
+# proposers: G1 4 096, G2 2 048 rows a chunk), dkg256's forced device route
+# (its 7 396 GLV-split muls padded to 8 192, doubled by the split: 16 384
+# rows), and G2 8 192 rows, one N = 4096 encrypt in a single chunk
 WINDOW_CASES = {"g1": ((256, True), (37, False), (4 * N_LARGE, True), (16384, True)),
-                "g2": ((128, True), (256, True), (37, False), (2 * N_LARGE, True))}
+                "g2": ((128, True), (256, True), (37, False), (2 * N_LARGE, True),
+                       (2 * N_4096, True))}
 DKG_T = 85
 COIN_N, COIN_F = 256, 85
 
@@ -2180,8 +2371,10 @@ def phase_kernels(ctx):
     fp_main = ctx["fp"]["rows"][256]
     sha = ctx["sha3"]["shapes"][ctx["sha3"]["main"]]
     sha_l = ctx["sha3"]["shapes"][ctx["sha3"]["main_n1024"]]
+    sha_x = ctx["sha3"]["shapes"][ctx["sha3"]["main_n4096"]]
     lad, lad_l = ctx["ladder"], ctx["ladder"]["n1024"]
     launches, launches_l = ctx["launches"], ctx["launches_n1024"]
+    launches_x, launches_s = ctx["launches_n4096"], ctx["launches_sustained4096"]
     win = ctx["window"]
 
     def window_sum(shapes):
@@ -2218,6 +2411,8 @@ def phase_kernels(ctx):
             "device_ms_per_launch": fp_main.get("device_ms_per_launch"),
             "n1024": {"launches": launches_l["fp_mul_lazy"],
                       "shape": "none: it runs inside the ladder kernel"},
+            "n4096": {"launches": launches_x["fp_mul_lazy"],
+                      "shape": "none: it runs inside the ladder kernel"},
         },
         {
             "name": "sha3_256", "route": "cuda",
@@ -2233,6 +2428,10 @@ def phase_kernels(ctx):
             "shape": f"{ctx['sha3']['main']} (the Merkle leaf level)",
             "n1024": {"launches": launches_l["sha3_256"], **times(sha_l),
                       "shape": f"{ctx['sha3']['main_n1024']} (one chunk's Merkle leaf level)"},
+            "n4096": {"launches": launches_x["sha3_256"], **times(sha_x),
+                      "shape": f"{ctx['sha3']['main_n4096']} (one chunk's Merkle leaf level)"},
+            "sustained4096": {"launches": launches_s["sha3_256"], "epochs": SUSTAINED_EPOCHS,
+                              "run": "pipelined"},
             "qhb64": {"launches": ctx["qhb64_launches"]["sha3_256"],
                       "epochs": QHB_EPOCHS, "run": "pipelined"},
             "mesh64": {"launches": ctx["mesh64_launches"]["sha3_256"],
@@ -2257,6 +2456,7 @@ def phase_kernels(ctx):
                       "ms_by_group": lad_l["ms_by_group"],
                       "shape": "G1 {g1} rows + G2 {g2} rows, {bits} bits, summed".format(
                           bits=LADDER_BITS, **lad_l["rows"])},
+            "n4096": {"launches": launches_x["ladder_lazy"]},
         },
         {
             "name": "ladder_window", "route": "cuda",
@@ -2272,6 +2472,13 @@ def phase_kernels(ctx):
                        **window_sum([("g1", 2 * 8192)])},
             "n1024": {"launches": launches_l["ladder_window"],
                       **window_sum([("g1", 4 * N_LARGE), ("g2", 2 * N_LARGE)])},
+            # N = 4096 encrypts in chunks of 1 024 proposers: n1024's shapes
+            "n4096": {"launches": launches_x["ladder_window"],
+                      "chunks_per_epoch": launches_x["ladder_window"] // 2,
+                      **window_sum([("g1", 4 * N_LARGE), ("g2", 2 * N_LARGE)])},
+            "g2_8192": window_sum([("g2", 2 * N_4096)]),
+            "sustained4096": {"launches": launches_s["ladder_window"],
+                              "epochs": SUSTAINED_EPOCHS, "run": "pipelined"},
             "qhb64": {"launches": ctx["qhb64_launches"]["ladder_window"],
                       "epochs": QHB_EPOCHS, "run": "pipelined"},
             "mesh64": {"launches": ctx["mesh64_launches"]["ladder_window"],
@@ -2300,6 +2507,7 @@ def _parse_args(argv, names):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2332,6 +2540,8 @@ def main() -> int:
     # shard bytes of the epochs' ciphertexts
     ctx["leaf_bytes"] = _frame_shard_len([bytes(CIPHERTEXT_BYTES)], N_NODES - 2 * 21)
     ctx["leaf_bytes_large"] = _frame_shard_len([bytes(CIPHERTEXT_BYTES)], N_LARGE - 2 * F_LARGE)
+    ctx["leaf_bytes_4096"] = _frame_shard_len([bytes(294 + CONTRIB_BYTES_4096)],
+                                              N_4096 - 2 * F_4096)
     phases = [("build", phase_build), ("kernel_field", phase_kernel_field),
               ("kernel_fp_mul_lazy", phase_kernel_fp),
               ("kernel_sha3", phase_kernel_sha3), ("kernel_ladder", phase_kernel_ladder),
@@ -2339,6 +2549,7 @@ def main() -> int:
               ("ladder_crossover", phase_ladder_crossover),
               ("epoch", phase_epoch), ("profile", phase_profile), ("qhb64", phase_qhb64),
               ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
+              ("epoch4096", phase_epoch4096), ("sustained4096", phase_sustained4096),
               ("mesh", phase_mesh), ("coin256", phase_coin256), ("dkg256", phase_dkg256), ("dhb", phase_dhb)]
     only, ctx["dhb_n"] = _parse_args(sys.argv[1:], [n for n, _ in phases])
     ok = True
@@ -2359,6 +2570,7 @@ def main() -> int:
         return 1
     if not only:
         emit(phase_kernels(ctx))
+    emit({"run_seconds": time.perf_counter() - t_start})
     print(ctx["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -113,6 +113,30 @@ def vandermonde(rows: int, cols: int) -> np.ndarray:
     return V
 
 
+def systematic_matrix(total: int, data: int) -> np.ndarray:
+    """The systematic encode matrix ``V · V[:data]⁻¹`` of
+    ``vandermonde(total, data)``, in closed form: (total, data) uint16.
+
+    Row r of the product holds the Lagrange basis on the points
+    x_c = c (c < data) evaluated at x_r = r, so the top block is the
+    identity and, below it, ``M[r, c] = w_c · P(x_r) / (x_r ⊕ x_c)`` with
+    ``P(x) = Π_j (x ⊕ x_j)`` and ``w_c = 1 / Π_{j≠c} (x_c ⊕ x_j)``.  In the
+    log domain that is three gathers of ``GF_LOG`` over sums of indices,
+    where the Gauss–Jordan construction is O(total·data²) lookups.  The
+    systematic matrix of a given V is unique, so both give the same bits."""
+    if not 1 <= data <= total <= ORDER:
+        raise ValueError(f"need 1 <= data <= total <= {ORDER}, got ({total}, {data})")
+    q = ORDER - 1
+    c = np.arange(data, dtype=np.int64)
+    r = np.arange(data, total, dtype=np.int64)
+    # Σ_{j≠c} log(x_c ⊕ x_j): the diagonal adds GF_LOG[0] = 0
+    log_w = -GF_LOG[c[:, None] ^ c[None, :]].sum(axis=1)
+    log_rc = GF_LOG[r[:, None] ^ c[None, :]]  # (total − data, data), r ≠ c
+    log_p = log_rc.sum(axis=1)
+    parity = GF_EXP[(log_p[:, None] - log_rc + log_w[None, :]) % q].astype(np.uint16)
+    return np.concatenate([np.eye(data, dtype=np.uint16), parity], axis=0)
+
+
 def gf_matrix_to_bits(M: np.ndarray) -> np.ndarray:
     """(r, k) GF(2^16) matrix → (k·16, r·16) GF(2) bit matrix (int8).
 
@@ -181,6 +205,21 @@ def gf_matrix_to_bits_torch(M: torch.Tensor) -> torch.Tensor:
     bits = (prod[..., None] >> shifts) & 1  # (..., r, k, i, b)
     A = bits.movedim(-4, -2)  # (..., k, i, r, b)
     return A.reshape(*M.shape[:-2], k * 16, r * 16).to(torch.int8)
+
+
+def parity_bits_f32(M: torch.Tensor) -> torch.Tensor:
+    """:func:`gf_matrix_to_bits_torch` of one (r, k) matrix as float32 on
+    ``M``'s device, built 64 columns of M at a time straight into the
+    result: column c of M fills rows c·16 … c·16+15, so the temporaries are
+    those of a (r, 64) slice, not of the whole matrix (a (2730, 1366)
+    parity matrix has a 3.8 GB float32 bit matrix, and its whole-matrix
+    int32 temporaries would be four times that)."""
+    r, k = M.shape
+    out = torch.empty((k * 16, r * 16), dtype=torch.float32, device=M.device)
+    for c0 in range(0, k, 64):
+        c1 = min(k, c0 + 64)
+        out[c0 * 16: c1 * 16] = gf_matrix_to_bits_torch(M[:, c0:c1])
+    return out
 
 
 def bytes_to_symbol_bits(x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,6 @@ networks (up to 65536 shards).  :func:`for_n_f` picks the field.
 from __future__ import annotations
 
 import functools
-import os
 from typing import Tuple
 
 import numpy as np
@@ -93,7 +92,9 @@ class ReedSolomon16:
 
     The construction of :class:`ReedSolomon` in the 65536-element field:
     shard symbols are u16 little-endian byte pairs, so a shard's length
-    must be even.  Host encode and decode, and the device encode."""
+    must be even.  The matrix is built in closed form
+    (:func:`gf16.systematic_matrix`), in well under a second at 4096
+    shards.  Host encode and decode, and the device encode."""
 
     def __init__(self, data_shards: int, parity_shards: int):
         if data_shards < 1:
@@ -103,41 +104,32 @@ class ReedSolomon16:
         self.data_shards = data_shards
         self.parity_shards = parity_shards
         self.total_shards = data_shards + parity_shards
-        # the construction is O(total·data²) table lookups (~10 minutes at
-        # 4096 shards), so its matrix is cached on disk
-        cache_dir = os.path.join(os.path.expanduser("~"), ".cache", "hbbft_tpu_torch")
-        cache = os.path.join(cache_dir, f"rs16_{data_shards}_{parity_shards}.npz")
-        if os.path.exists(cache):
-            self.matrix = np.load(cache)["matrix"]
-        else:
-            V = gf16.vandermonde(self.total_shards, data_shards)
-            top_inv = gf16.gf_inv_matrix_np(V[:data_shards])
-            self.matrix = gf16.gf_matmul_np(V, top_inv)
-            try:  # written whole, then renamed: a reader never sees half a file
-                os.makedirs(cache_dir, exist_ok=True)
-                tmp = f"{cache}.{os.getpid()}.tmp"
-                with open(tmp, "wb") as fh:
-                    np.savez_compressed(fh, matrix=self.matrix)
-                os.replace(tmp, cache)
-            except OSError:
-                pass
+        self.matrix = gf16.systematic_matrix(self.total_shards, data_shards)
         if not np.array_equal(
             self.matrix[:data_shards], np.eye(data_shards, dtype=np.uint16)
         ):
-            raise ValueError(f"{cache}: not a systematic encode matrix")
+            raise ValueError("not a systematic encode matrix")
         self.parity_matrix = self.matrix[data_shards:]
-        self._parity_bits = gf16.gf_matrix_to_bits(self.parity_matrix)
         self._decode_cache: dict = {}
         # device → (parity bits f32, encode matrix i32), made once per device
         self._dev: dict = {}
 
+    @functools.cached_property
+    def _parity_bits(self) -> np.ndarray:
+        """The parity matrix as a host GF(2) bit matrix
+        (:func:`gf16.gf_matrix_to_bits`), made at first use: the CPU's
+        encode reads it, a CUDA device builds its own copy on the card."""
+        return gf16.gf_matrix_to_bits(self.parity_matrix)
+
     def _on(self, device):
         hit = self._dev.get(device)
         if hit is None:
-            hit = self._dev[device] = (
-                torch.from_numpy(self._parity_bits).to(device, torch.float32),
-                torch.from_numpy(self.matrix.astype(np.int32)).to(device),
-            )
+            mat = torch.from_numpy(self.matrix.astype(np.int32)).to(device)
+            if mat.device.type == "cuda":
+                bits = gf16.parity_bits_f32(mat[self.data_shards:])
+            else:
+                bits = torch.from_numpy(self._parity_bits).to(device, torch.float32)
+            hit = self._dev[device] = (bits, mat)
         return hit
 
     def matrix_on(self, device) -> torch.Tensor:
