@@ -6,6 +6,7 @@ on one NVIDIA card.
     python3 chip_smoke.py --phases kernel_field,kernel_ladder_window   # those (and build)
     python3 chip_smoke.py --phases qhb64,dhb --dhb-n 16   # the drivers; dhb at N = 16
     python3 chip_smoke.py --phases epoch4096,sustained4096   # BASELINE config 5
+    python3 chip_smoke.py --phases objsim   # object mode: the simulation CLI
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -37,9 +38,10 @@ Phases, one JSON line each; any failure exits non-zero:
    measured); it stays held against its plain version.
 6. ``kernel_ladder_window``: the 4-bit windowed kernel, the one every path
    runs, against its plain version, digit- and inf-exact, at G1 256 / 37 /
-   4 096 / 16 384 rows (N = 64 and coin256, ragged, N = 1024 and 4096,
-   dkg256's forced device route) and G2 128 / 256 / 37 / 2 048 / 8 192 rows
-   (the last one N = 4096 encrypt in a single chunk), with the same
+   4 096 / 16 384 / 16 rows (N = 64 and coin256, ragged, N = 1024 and
+   4096, dkg256's forced device route, objsim's share-set fold) and G2 128
+   / 256 / 37 / 2 048 / 8 192 rows (the last one N = 4096 encrypt in a
+   single chunk), with the same
    edge rows, three rows each against the native oracle; timed with its
    bound, the K it runs at, its registers, spilled bytes, blocks an SM and
    the SASS instructions of a lazy operation at that K.
@@ -121,7 +123,17 @@ Phases, one JSON line each; any failure exits non-zero:
     driver pickled after the rotation (no CUDA tensor in it) restored with
     ``device="cpu"`` to the same next batch.  The DKG is host work of
     order N³, which bounds N here, not the card.
-19. ``kernels``: every kernel with its launches, errors and times; then the
+19. ``objsim``: object mode (QHB over DHB over ``VirtualNet``) through the
+    simulation CLI on the card: (a) N = 10 at the defaults of upstream
+    ``examples/simulation.rs`` (1 000 transactions of 10 B, batches of 100,
+    the JAX CLI's cost model) under the native and the device erasure
+    backend — every node's ledger equal, each transaction committed once,
+    no fault, and both runs equal in ledgers, message counts, wire bytes
+    and virtual time; (b) N = 22, f = 7 (220 transactions, batch 220):
+    the same ledger gates, one ``ladder_window`` launch for each share-set
+    fold of ≥ 8 rows and none else, the first 32 folds held against the
+    host loop; wall seconds, cranks, messages and messages/s.
+20. ``kernels``: every kernel with its launches, errors and times; then the
     whole run's seconds.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
@@ -1518,8 +1530,10 @@ def phase_sustained4096(ctx):
 # N = 4096 epochs (both encrypt in chunks of DEVICE_ENCRYPT_CHUNK = 1 024
 # proposers: G1 4 096, G2 2 048 rows a chunk), dkg256's forced device route
 # (its 7 396 GLV-split muls padded to 8 192, doubled by the split: 16 384
-# rows), and G2 8 192 rows, one N = 4096 encrypt in a single chunk
-WINDOW_CASES = {"g1": ((256, True), (37, False), (4 * N_LARGE, True), (16384, True)),
+# rows), G2 8 192 rows, one N = 4096 encrypt in a single chunk, and G1 16
+# rows, objsim's share-set fold (8 shares, doubled by the GLV split)
+WINDOW_CASES = {"g1": ((256, True), (37, False), (4 * N_LARGE, True), (16384, True),
+                       (16, True)),
                 "g2": ((128, True), (256, True), (37, False), (2 * N_LARGE, True),
                        (2 * N_4096, True))}
 DKG_T = 85
@@ -2211,6 +2225,248 @@ def phase_dhb(ctx):
     }
 
 
+# objsim: object mode (QHB over DHB over VirtualNet, the simulation CLI).
+# (a) N = 10 at the defaults of upstream poanetwork/hbbft's
+# examples/simulation.rs: 1 000 transactions of 10 B, batches of 100, the
+# JAX CLI's cost model (1 Gbit/s, 10 µs a message), run under the native
+# erasure backend and under the device one.  (b) N = 22, f = 7: the
+# smallest N whose t + 1 reaches DEVICE_FOLD_MIN_BATCH = 8, so every
+# threshold-decrypt share-set fold runs the windowed ladder kernel.
+OBJSIM_A = ["--nodes", "10", "--txs", "1000", "--tx-size", "10", "--batch-size", "100"]
+OBJSIM_B = ["--nodes", "22", "--txs", "220", "--tx-size", "10", "--batch-size", "220"]
+OBJSIM_HOST_CHECKED_FOLDS = 32
+OBJSIM_DEVICE = "cuda"
+OBJSIM_FOLD_REPS = 21
+
+
+@contextlib.contextmanager
+def _erasure_backend(value: str):
+    before = os.environ.get("HBBFT_ERASURE_BACKEND")
+    os.environ["HBBFT_ERASURE_BACKEND"] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["HBBFT_ERASURE_BACKEND"]
+        else:
+            os.environ["HBBFT_ERASURE_BACKEND"] = before
+
+
+@contextlib.contextmanager
+def _device_calls(B):
+    """Wrap ``crypto/batch.py``'s share-set fold and share generation (the
+    protocols import them at call time) to count the calls that take the
+    device route, time them, and keep the first folds' inputs and result."""
+    rec = {"folds": 0, "host_folds": 0, "share_gens": 0, "host_share_gens": 0,
+           "device_s": 0.0, "kept": []}
+    fold, gen = B.rlc_fold_g1, B.batch_decrypt_share_gen
+
+    def counted_fold(points, scalars, device="cuda"):
+        if not B._device_worthwhile(len(points), B.DEVICE_FOLD_MIN_BATCH):
+            rec["host_folds"] += 1
+            return fold(points, scalars, device=device)
+        t = time.perf_counter()
+        out = fold(points, scalars, device=device)
+        rec["device_s"] += time.perf_counter() - t
+        rec["folds"] += 1
+        if len(rec["kept"]) < OBJSIM_HOST_CHECKED_FOLDS:
+            rec["kept"].append((list(points), list(scalars), out))
+        return out
+
+    def counted_gen(scalar, cts, device="cuda"):
+        key = ("share_gens" if B._device_worthwhile(len(cts), B.DEVICE_SHARE_GEN_MIN_BATCH)
+               else "host_share_gens")
+        rec[key] += 1
+        t = time.perf_counter()
+        out = gen(scalar, cts, device=device)
+        if key == "share_gens":
+            rec["device_s"] += time.perf_counter() - t
+        return out
+
+    B.rlc_fold_g1, B.batch_decrypt_share_gen = counted_fold, counted_gen
+    try:
+        yield rec
+    finally:
+        B.rlc_fold_g1, B.batch_decrypt_share_gen = fold, gen
+
+
+@contextlib.contextmanager
+def _host_split():
+    """Seconds and calls of object mode's leaf host work while the block
+    runs: the pairing checks, hash-to-G2 and G1/G2 scalar muls of
+    ``crypto/bls12_381.py``, the Merkle trees' SHA3 (hashlib and the native
+    batch hasher), the GF(2^8) erasure code and the event log's wire sizes
+    (one ``encode_message`` a crank).  None of these calls another."""
+    from hbbft_tpu_torch.crypto import bls12_381 as c
+    from hbbft_tpu_torch.ops import merkle, rs
+    from hbbft_tpu_torch.sim import trace
+
+    merkle._sha3_batch()  # resolve the native batch hasher before wrapping it
+    targets = [(c, "pairing_check", "pairing"), (c, "hash_g2", "hash_g2"),
+               (c, "g1_mul", "g1_mul"), (c, "g2_mul", "g2_mul"),
+               (merkle, "sha3_256_host", "merkle_sha3"),
+               (rs.ReedSolomon, "_apply_matrix", "erasure"),
+               (trace, "wire_size", "wire_size")]
+    if merkle._batch_fn is not None:
+        targets.append((merkle, "_batch_fn", "merkle_sha3"))
+    split = {label: {"s": 0.0, "calls": 0} for _, _, label in targets}
+    saved = []
+    for owner, name, label in targets:
+        fn = getattr(owner, name)
+        saved.append((owner, name, vars(owner)[name]))
+
+        def timed(*args, _fn=fn, _rec=split[label], **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                _rec["s"] += time.perf_counter() - t
+                _rec["calls"] += 1
+
+        setattr(owner, name, timed)
+    try:
+        yield split
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+def _objsim_run(argv, backend: str, split: bool = False):
+    """One ``simulation.simulate`` run on cuda under the erasure ``backend``,
+    then cranked to quiescence so every node closes the last epoch; the
+    launch counts are zeroed just before and read just after.  Gates: every
+    node's ledger equal, every transaction committed once, no fault."""
+    import io
+
+    import torch
+
+    from hbbft_tpu_torch import _build, simulation
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.ops import rs
+    from hbbft_tpu_torch.protocols import wire
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import QhbBatch
+
+    buf = io.StringIO()
+    stats0 = rs.stats_snapshot()
+    host = _host_split() if split else contextlib.nullcontext()
+    with _erasure_backend(backend), _device_calls(B) as calls, host as host_s:
+        resolved = rs.resolve_backend()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            run = simulation.simulate([*argv, "--device", OBJSIM_DEVICE])
+        cli_s = time.perf_counter() - t0
+        cranks_cli = run.net.cranks
+        run.net.run_to_quiescence()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    stats1 = rs.stats_snapshot()
+    net, what = run.net, f"objsim {argv[1]} nodes, {backend}"
+    ledgers = {nid: [o for o in net.nodes[nid].outputs if isinstance(o, QhbBatch)]
+               for nid in net.node_ids()}
+    ledger = [wire.batch_bytes(b) for b in ledgers[0]]
+    if any([wire.batch_bytes(b) for b in v] != ledger for v in ledgers.values()):
+        raise AssertionError(f"{what}: the nodes' ledgers differ")
+    seen = [tx for b in ledgers[0] for _, txs in b.contributions for tx in txs]
+    if sorted(seen) != sorted(run.txs):
+        raise AssertionError(f"{what}: {len(seen)} commits of {len(set(seen))} distinct "
+                             f"transactions, {len(run.txs)} sent: not each once")
+    faults = {nid: len(net.nodes[nid].faults_observed) for nid in net.node_ids()}
+    if any(faults.values()):
+        raise AssertionError(f"{what}: faults logged {faults}")
+    expected = calls["folds"] + calls["share_gens"]  # one ladder launch each
+    if launches.get("ladder_window") != expected or any(
+            v for k, v in launches.items() if k != "ladder_window"):
+        raise AssertionError(f"{what}: launches {launches}, expected ladder_window = "
+                             f"{expected} (device folds + share generations) and no other")
+    messages = len(run.trace)
+    return run, {
+        "backend": backend, "resolved_backend": resolved,
+        "nodes": len(net.node_ids()), "txs": len(run.txs),
+        "epochs": len(ledger), "cli_s": cli_s, "crank_loop_s": run.wall_s,
+        "cranks_cli": cranks_cli, "cranks": net.cranks, "messages": messages,
+        "messages_per_s": messages / run.wall_s, "wire_bytes": run.trace.total_bytes(),
+        "virtual_time_s": net.virtual_time, "launches": launches,
+        "device_folds": calls["folds"], "host_folds": calls["host_folds"],
+        "device_share_gens": calls["share_gens"], "host_share_gens": calls["host_share_gens"],
+        "device_route_s": calls["device_s"],
+        "erasure_stats": {b: {k: stats1[b][k] - stats0[b][k] for k in stats1[b]}
+                          for b in stats1},
+        "table": buf.getvalue().splitlines(),
+        **({"host_split": host_s} if split else {}),
+    }, calls
+
+
+def phase_objsim(ctx):
+    """Object mode on the card through the simulation CLI: (a) N = 10 under
+    the native and the device erasure backend, equal in ledgers, message
+    counts, wire bytes and virtual time; (b) N = 22, where the share-set
+    folds take the windowed ladder kernel: one launch a fold of ≥ 8 rows,
+    and the first OBJSIM_HOST_CHECKED_FOLDS folds equal to the host loop."""
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.crypto import bls12_381 as c
+
+    out = {"smi": ctx["smi"]}
+    runs = {}
+    for backend in ("auto", "device"):
+        run, rec, _ = _objsim_run(OBJSIM_A, backend)
+        runs[backend] = run
+        out[f"n10_{backend}"] = rec
+    if out["n10_device"]["erasure_stats"]["device"]["calls"] == 0:
+        raise AssertionError("objsim: the device erasure backend ran no product")
+
+    def signature(run):
+        from hbbft_tpu_torch.protocols import wire
+        from hbbft_tpu_torch.protocols.queueing_honey_badger import QhbBatch
+
+        return ([wire.batch_bytes(o) for o in run.net.nodes[0].outputs
+                 if isinstance(o, QhbBatch)],
+                run.trace.messages_by_type(), run.trace.bytes_by_type(),
+                run.trace.total_bytes(), run.net.virtual_time, run.net.cranks)
+
+    if signature(runs["auto"]) != signature(runs["device"]):
+        raise AssertionError("objsim: N = 10 differs between the native and the device "
+                             "erasure backends")
+    out["n10_backends_equal"] = True
+
+    run, rec, calls = _objsim_run(OBJSIM_B, "auto", split=True)
+    if rec["device_folds"] == 0 or rec["host_folds"]:
+        raise AssertionError(f"objsim N = 22: folds {rec['device_folds']} on the device, "
+                             f"{rec['host_folds']} on the host")
+    for i, (points, scalars, got) in enumerate(calls["kept"]):
+        want = None
+        for pt, sc in zip(points, scalars):
+            want = c.g1_add(want, c.g1_mul(pt, sc))
+        if (got is None) != (want is None) or (got is not None and not c.g1_eq(got, want)):
+            raise AssertionError(f"objsim N = 22: device fold {i} differs from the host loop")
+    rec["host_checked_folds"] = len(calls["kept"])
+    rec["fold_rows"] = sorted({len(p) for p, _, _ in calls["kept"]})
+    # one share-set fold (8 shares, full-range coefficients) by each route,
+    # median of OBJSIM_FOLD_REPS calls: the device route against the host
+    # loop it replaces at N ≥ 22
+    points, scalars, _ = calls["kept"][0]
+    saved = B.DEVICE_FOLD_MIN_BATCH
+    times = {}
+    try:
+        for route, threshold in (("device", saved), ("host", None)):
+            B.DEVICE_FOLD_MIN_BATCH = threshold
+            B.rlc_fold_g1(points, scalars, device=OBJSIM_DEVICE)
+            reps = []
+            for _ in range(OBJSIM_FOLD_REPS):
+                t = time.perf_counter()
+                B.rlc_fold_g1(points, scalars, device=OBJSIM_DEVICE)
+                reps.append((time.perf_counter() - t) * 1e3)
+            times[route] = statistics.median(reps)
+    finally:
+        B.DEVICE_FOLD_MIN_BATCH = saved
+    rec["fold_ms"] = {"rows": len(points), "reps": OBJSIM_FOLD_REPS, **times}
+    out["n22"] = rec
+    ctx["objsim_launches"] = rec["launches"]
+    ctx["objsim_folds"] = rec["device_folds"]
+    return out
+
+
 def _mesh_epoch64(torch, mesh, nets, contribs):
     """The N = 64 epoch sharded over ``mesh`` and unsharded, on the same
     inputs: (sharded seconds by phase, unsharded ones, launches of the
@@ -2413,6 +2669,7 @@ def phase_kernels(ctx):
                       "shape": "none: it runs inside the ladder kernel"},
             "n4096": {"launches": launches_x["fp_mul_lazy"],
                       "shape": "none: it runs inside the ladder kernel"},
+            "objsim22": {"launches": ctx["objsim_launches"]["fp_mul_lazy"]},
         },
         {
             "name": "sha3_256", "route": "cuda",
@@ -2436,6 +2693,8 @@ def phase_kernels(ctx):
                       "epochs": QHB_EPOCHS, "run": "pipelined"},
             "mesh64": {"launches": ctx["mesh64_launches"]["sha3_256"],
                        "run": "the N = 64 epoch sharded over a 1-rank NCCL mesh"},
+            "objsim22": {"launches": ctx["objsim_launches"]["sha3_256"],
+                         "run": "object mode hashes its Merkle trees on the host"},
         },
         {
             "name": "ladder_lazy", "route": "cuda",
@@ -2457,6 +2716,7 @@ def phase_kernels(ctx):
                       "shape": "G1 {g1} rows + G2 {g2} rows, {bits} bits, summed".format(
                           bits=LADDER_BITS, **lad_l["rows"])},
             "n4096": {"launches": launches_x["ladder_lazy"]},
+            "objsim22": {"launches": ctx["objsim_launches"]["ladder_lazy"]},
         },
         {
             "name": "ladder_window", "route": "cuda",
@@ -2483,6 +2743,10 @@ def phase_kernels(ctx):
                       "epochs": QHB_EPOCHS, "run": "pipelined"},
             "mesh64": {"launches": ctx["mesh64_launches"]["ladder_window"],
                        "run": "the N = 64 epoch sharded over a 1-rank NCCL mesh"},
+            "objsim22": {"launches": ctx["objsim_launches"]["ladder_window"],
+                         "device_folds": ctx["objsim_folds"],
+                         **window_sum([("g1", 16)]),
+                         "run": "object mode at N = 22: one launch a share-set fold"},
         },
     ]
     return {"kernels": kernels}
@@ -2550,7 +2814,8 @@ def main() -> int:
               ("epoch", phase_epoch), ("profile", phase_profile), ("qhb64", phase_qhb64),
               ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
               ("epoch4096", phase_epoch4096), ("sustained4096", phase_sustained4096),
-              ("mesh", phase_mesh), ("coin256", phase_coin256), ("dkg256", phase_dkg256), ("dhb", phase_dhb)]
+              ("mesh", phase_mesh), ("coin256", phase_coin256), ("dkg256", phase_dkg256), ("dhb", phase_dhb),
+              ("objsim", phase_objsim)]
     only, ctx["dhb_n"] = _parse_args(sys.argv[1:], [n for n, _ in phases])
     ok = True
     for name, fn in phases:

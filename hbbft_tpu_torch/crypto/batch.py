@@ -642,9 +642,20 @@ def bivar_commitment(bivar_poly, device="cuda"):
 def rlc_fold_g1(points, scalars, device="cuda"):
     """``Σ rᵢ·Pᵢ`` over host Jacobian G1 points: the device MSM from
     ``DEVICE_FOLD_MIN_BATCH`` rows, per-item host muls below.  Returns a
-    host point, None for the infinity sum."""
+    host point, None for the infinity sum.
+
+    The MSM ladder is sound below 2^128.  Scalars past that (object mode's
+    ``ThresholdDecrypt`` folds with coefficients mod r) split against the
+    GLV eigenvalue inside the same MSM, s·P = a·P + b·φ(P) with a, b <
+    2^128, so the one launch runs 2·len(points) rows."""
     if _device_worthwhile(len(points), DEVICE_FOLD_MIN_BATCH):
-        return cache_for(device).msm_g1(points, scalars)
+        if all(0 <= s < 1 << _RAND_BITS for s in scalars):
+            return cache_for(device).msm_g1(points, scalars)
+        sc = [s % c.R for s in scalars]
+        return cache_for(device).msm_g1(
+            list(points) + [c.g1_endo(p) for p in points],
+            [s % c.LAMBDA_G1 for s in sc] + [s // c.LAMBDA_G1 for s in sc],
+        )
     acc = None
     for p, s in zip(points, scalars):
         acc = c.g1_add(acc, c.g1_mul(p, s))

@@ -4,7 +4,9 @@ Field: GF(2^8) with reducing polynomial x^8+x^4+x^3+x^2+1 (0x11D) and
 generator 2, the ``reed-solomon-erasure`` crate's field (counterpart of
 ``hbbft_tpu/ops/gf256.py``).
 
-1. **Host (numpy)** — log/exp tables, matrix construction and inversion.
+1. **Host (numpy)** — log/exp tables, matrix construction and inversion,
+   and the cached bitmatrix-XOR schedule (the host coder's ``numpy``
+   backend, :func:`build_xor_schedule` / :func:`apply_xor_schedule`).
 2. **Device (torch)** — multiplication by a constant GF(2^8) matrix is
    linear over GF(2), so it lowers to ONE 0/1 matrix product: expand bytes
    to bits, multiply by the 8×-expanded bit matrix, take parity (``& 1``),
@@ -60,6 +62,10 @@ def gf_inv(a):
     if np.any(a == 0):
         raise ZeroDivisionError("GF(2^8) inverse of 0")
     return GF_EXP[255 - GF_LOG[a]]
+
+
+def gf_div(a, b):
+    return gf_mul(a, gf_inv(b))
 
 
 def gf_pow(a: int, n: int) -> int:
@@ -123,6 +129,170 @@ def gf_matrix_to_bits(M: np.ndarray) -> np.ndarray:
     prod = _MUL_TABLE[M[:, :, None], powers[None, None, :]]
     bits = (prod[..., None] >> np.arange(8)) & 1
     return bits.transpose(1, 2, 0, 3).reshape(k * 8, r * 8).astype(np.int8)
+
+
+# ---------------------------------------------------------------------------
+# Cached bitmatrix-XOR schedule (host hot path)
+# ---------------------------------------------------------------------------
+#
+# "Accelerating XOR-based Erasure Coding using Program Optimization
+# Techniques" playbook: a constant GF(2^8) matrix is a GF(2) bitmatrix, so
+# applying it is pure XORs of bit-planes.  The schedule is computed ONCE per
+# matrix (the per-call cost of the old table-matmul path was the whole
+# problem), common XOR subexpressions are eliminated greedily, and execution
+# walks the shards in column tiles so every plane of a tile stays cache-hot.
+
+
+class XorSchedule:
+    """A straight-line XOR program for one constant bit matrix.
+
+    Nodes ``0..n_in-1`` are the input bit-planes (input symbol ``k``, bit
+    ``i`` → node ``k*8 + i``).  Each op ``(dest, a, b)`` defines node
+    ``dest = a ^ b`` (the CSE intermediates, in dependency order).
+    ``outputs[j]`` lists the node ids whose XOR is output bit-row ``j``
+    (output symbol ``j // 8``, bit ``j % 8``).
+    """
+
+    __slots__ = ("n_in", "ops", "outputs", "xor_count")
+
+    def __init__(self, n_in, ops, outputs):
+        self.n_in = n_in
+        self.ops = ops
+        self.outputs = outputs
+        self.xor_count = len(ops) + sum(
+            max(0, len(o) - 1) for o in outputs
+        )
+
+
+def build_xor_schedule(bitmat: np.ndarray) -> XorSchedule:
+    """Compile a (k*8, r*8) bit matrix into an :class:`XorSchedule`.
+
+    Greedy pairwise common-subexpression elimination: repeatedly extract
+    the operand pair shared by the most output rows into an intermediate
+    node.  Fully deterministic (ties break on the smallest pair), so the
+    schedule — and therefore the XOR order — is a pure function of the
+    matrix.
+
+    The reference recounts every pair of every output row for each
+    extraction (minutes at 64 shards).  Here the pair counts are kept up to
+    date as rows change, and the best pair comes off a heap whose entries
+    may overstate a count (counts only fall after a pair's first
+    extraction step): an entry found stale is pushed back with its current
+    count, so the first entry popped at its true count is the largest
+    count with the smallest pair, the reference's choice at every step.
+    """
+    import heapq
+    from itertools import combinations
+
+    bitmat = np.asarray(bitmat)
+    n_in, n_out = bitmat.shape
+    sets = [
+        set(int(i) for i in np.nonzero(bitmat[:, j])[0])
+        for j in range(n_out)
+    ]
+    members: dict = {}  # node → output rows holding it
+    counts: dict = {}  # (x, y), x < y → rows holding both
+    for j, s in enumerate(sets):
+        for x in s:
+            members.setdefault(x, set()).add(j)
+        for pair in combinations(sorted(s), 2):
+            counts[pair] = counts.get(pair, 0) + 1
+    heap = [(-c, x, y) for (x, y), c in counts.items() if c >= 2]
+    heapq.heapify(heap)
+
+    ops = []
+    next_id = n_in
+    while heap:
+        neg, a, b = heapq.heappop(heap)
+        c = counts.get((a, b), 0)
+        if c != -neg:
+            if c >= 2:
+                heapq.heappush(heap, (-c, a, b))
+            continue
+        d = next_id
+        ops.append((d, a, b))
+        rows = members[a] & members[b]
+        fresh: dict = {}  # x → rows where d joins x
+        for j in rows:
+            s = sets[j]
+            s.discard(a)
+            s.discard(b)
+            for x in s:
+                for y in (a, b):
+                    pair = (y, x) if y < x else (x, y)
+                    left = counts[pair] - 1
+                    if left:
+                        counts[pair] = left
+                    else:
+                        del counts[pair]
+                fresh[x] = fresh.get(x, 0) + 1
+            s.add(d)
+        del counts[(a, b)]
+        for x, n in fresh.items():
+            counts[(x, d)] = n
+            if n >= 2:
+                heapq.heappush(heap, (-n, x, d))
+        members[a] -= rows
+        members[b] -= rows
+        members[d] = set(rows)
+        next_id += 1
+    return XorSchedule(n_in, ops, [sorted(s) for s in sets])
+
+
+_BIT_WEIGHTS = np.left_shift(1, np.arange(8)).astype(np.uint8)
+
+
+def apply_xor_schedule(
+    sched: XorSchedule,
+    data: np.ndarray,
+    out: np.ndarray = None,
+    tile_bytes: int = 1 << 15,
+) -> np.ndarray:
+    """Run a schedule over shard rows: (k, B) uint8 → (r, B) uint8.
+
+    ``out`` may be a view into the caller's allocation (the parity tail of
+    one contiguous buffer).  Columns are processed ``tile_bytes`` at a time
+    so the k+r+intermediate bit-planes of a tile fit in cache.
+    """
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    k, B = data.shape
+    assert k * 8 == sched.n_in
+    r8 = len(sched.outputs)
+    r = r8 // 8
+    if out is None:
+        out = np.empty((r, B), dtype=np.uint8)
+    n_nodes = sched.n_in + len(sched.ops)
+    for t0 in range(0, B, tile_bytes):
+        tile = data[:, t0:t0 + tile_bytes]
+        T = tile.shape[1]
+        # decompose: (k, 8, T) bit arrays → packed planes (k*8, ceil(T/8))
+        bits = (
+            tile[:, None, :] >> np.arange(8, dtype=np.uint8)[None, :, None]
+        ) & 1
+        planes = np.packbits(bits != 0, axis=-1, bitorder="little")
+        planes = planes.reshape(k * 8, -1)
+        nodes: list = [None] * n_nodes
+        for i in range(k * 8):
+            nodes[i] = planes[i]
+        for dest, a, b in sched.ops:
+            nodes[dest] = nodes[a] ^ nodes[b]
+        W = planes.shape[1]
+        obits = np.zeros((r8, W), dtype=np.uint8)
+        for j, ids in enumerate(sched.outputs):
+            if not ids:
+                continue
+            acc = nodes[ids[0]]
+            for nid in ids[1:]:
+                acc = acc ^ nodes[nid]
+            obits[j] = acc
+        # repack: unpack each output plane and recombine the 8 bit rows
+        ob = np.unpackbits(
+            obits.reshape(r, 8, W), axis=-1, bitorder="little"
+        )[..., :T]
+        out[:, t0:t0 + T] = (
+            ob * _BIT_WEIGHTS[None, :, None]
+        ).sum(axis=1, dtype=np.uint8)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,8 @@ Counterpart of ``hbbft_tpu/ops/keccak.py`` (``keccak_f1600`` and
 CUDA tensor it launches ``csrc/keccak.cu`` (two threads per message, one
 32-bit half of every lane each, the whole absorb loop in registers) or
 raises; on a CPU tensor it runs :func:`sha3_256_plain`.
+:func:`sha3_256_host` hashes one ``bytes`` message on the host (object
+mode's Merkle trees).
 
 The plain version holds each 64-bit lane in an int64.  PyTorch has no
 ``>>`` on uint64 on the CPU and ``>>`` on int64 is arithmetic, so every
@@ -180,3 +182,12 @@ def sha3_256(data: torch.Tensor) -> torch.Tensor:
         _build.check("sha3_256", rc)
         _build.count("sha3_256")
     return out.reshape(*batch, DIGEST_BYTES)
+
+
+def sha3_256_host(data: bytes) -> bytes:
+    """SHA3-256 of one host message: Python's built-in FIPS-202 hash (the
+    object-mode Merkle tree's hash, counterpart of the reference's
+    ``sha3_256_host``)."""
+    import hashlib
+
+    return hashlib.sha3_256(data).digest()

@@ -2,24 +2,153 @@
 
 Counterpart of ``hbbft_tpu/ops/rs.py``: the same encode matrix
 (Vandermonde(total, data) normalised by the inverse of its top data×data
-block, so the first ``data`` rows are the identity), applied on the device
-as one bit-plane product batched over any leading axes.
+block, so the first ``data`` rows are the identity).
 :class:`ReedSolomon` works over GF(2^8) (at most 256 shards, bit-exact with
 the reference's crate); :class:`ReedSolomon16` over GF(2^16) for larger
 networks (up to 65536 shards).  :func:`for_n_f` picks the field.
+
+Two APIs share each coder:
+
+- **tensors** (``encode``, ``reconstruct``; the batched RBC of
+  ``parallel/rbc.py``): one bit-plane product on the data's device,
+  batched over any leading axes;
+- **host bytes** (``encode_np``, ``encode_into``, ``reconstruct_np``,
+  ``reconstruct_data_np``; object mode's ``Broadcast``), through the
+  erasure backend switch below.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from hbbft_tpu_torch import resolve_device
 from hbbft_tpu_torch.ops import gf16, gf256
 
+# ---------------------------------------------------------------------------
+# Erasure backend switch
+# ---------------------------------------------------------------------------
+#
+# HBBFT_ERASURE_BACKEND selects the host coder API's engine:
+#   native — AVX2 pshufb nibble tables over the cached matrix (gf256.cpp
+#            in the native oracle; GF(2^8) only)
+#   numpy  — cached bitmatrix-XOR schedule (packed bit-planes, CSE, tiling)
+#   device — the bit-plane product (gf256.bitplane_parity, float32 matmul)
+#            on the ``device`` the caller passes: on a CUDA device it runs
+#            on the card or raises (the reference's value ``jax``)
+#   auto   — native when the oracle library loads, else numpy (default)
+#
+# All backends are byte-identical; the switch trades setup cost against
+# per-byte throughput.
+
+_BACKENDS = ("auto", "native", "numpy", "device")
+
+# Per-backend work counters (bytes = shard bytes produced).
+STATS = {b: {"calls": 0, "bytes": 0} for b in ("native", "numpy", "device")}
+
+
+def stats_snapshot():
+    """Copy of the per-backend encode/decode work counters."""
+    return {b: dict(v) for b, v in STATS.items()}
+
+
+# Decode-side artifacts are keyed by (matrix, erasure-pattern): the matrix
+# identity is the per-coder cache instance, the pattern is the key tuple.
+# The pattern space is C(n, f) — unbounded dicts would grow without limit
+# under adversarial erasure churn, so every per-coder cache is a small LRU.
 _DECODE_CACHE_MAX = 512
+
+# Above this many matrix columns the numpy path skips the XOR-schedule
+# compile (its greedy CSE scans all operand pairs per output row —
+# quadratic in the bit-matrix density) and keeps the cached table matmul.
+_SCHED_MAX_COLS = 64
+
+
+class _Lru:
+    """Tiny insertion-ordered LRU for per-coder compiled artifacts
+    (decode matrices, XOR schedules, bit matrices).  ``get`` refreshes
+    recency; ``put`` returns the value and evicts the oldest entries
+    beyond ``maxsize``."""
+
+    __slots__ = ("_d", "maxsize")
+
+    def __init__(self, maxsize: int = _DECODE_CACHE_MAX):
+        from collections import OrderedDict
+
+        self._d = OrderedDict()
+        self.maxsize = maxsize
+
+    def get(self, key):
+        v = self._d.get(key)
+        if v is not None:
+            self._d.move_to_end(key)
+        return v
+
+    def put(self, key, value):
+        self._d[key] = value
+        self._d.move_to_end(key)
+        while len(self._d) > self.maxsize:
+            self._d.popitem(last=False)
+        return value
+
+
+_native_oracle = None
+_native_checked = False
+
+
+def _native():
+    """The ctypes oracle, or None when the library can't build/load."""
+    global _native_oracle, _native_checked
+    if not _native_checked:
+        _native_checked = True
+        try:
+            from hbbft_tpu_torch.native.oracle import get_oracle
+
+            _native_oracle = get_oracle()
+        except Exception:
+            _native_oracle = None
+    return _native_oracle
+
+
+def resolve_backend() -> str:
+    """The effective erasure backend for this process."""
+    mode = os.environ.get("HBBFT_ERASURE_BACKEND", "auto")
+    if mode not in _BACKENDS:
+        raise ValueError(
+            f"HBBFT_ERASURE_BACKEND={mode!r}: want one of {_BACKENDS}"
+        )
+    if mode == "auto":
+        return "native" if _native() is not None else "numpy"
+    if mode == "native" and _native() is None:
+        raise RuntimeError(
+            "HBBFT_ERASURE_BACKEND=native but the oracle library "
+            "failed to build/load"
+        )
+    return mode
+
+
+def _bits_on(cache: _Lru, key, matrix: np.ndarray, to_bits, device):
+    """The float32 bit matrix of ``matrix`` on ``device``, cached per
+    (key, device) in the coder's ``cache``."""
+    dev = resolve_device(device)
+    ck = (key, str(dev))
+    bits = cache.get(ck)
+    if bits is None:
+        bits = cache.put(
+            ck, torch.from_numpy(to_bits(matrix)).to(dev, torch.float32)
+        )
+    return bits
+
+
+def _count(backend: str, out: np.ndarray) -> np.ndarray:
+    s = STATS[backend]
+    s["calls"] += 1
+    s["bytes"] += int(out.shape[0]) * int(out.shape[1])
+    return out
 
 
 class ReedSolomon:
@@ -41,7 +170,12 @@ class ReedSolomon:
         )
         self.parity_matrix = self.matrix[data_shards:]
         self._parity_bits = gf256.gf_matrix_to_bits(self.parity_matrix)
-        self._decode_cache: dict = {}
+        self._decode_cache = _Lru()
+        # the host API's compiled artifacts, built once per key and reused:
+        # key → XorSchedule (numpy backend) / (key, device) → bit matrix
+        # (device backend); decode-side keys carry the erasure pattern
+        self._sched_cache = _Lru()
+        self._bits_cache = _Lru()
         self._dev: dict = {}  # device → (parity bits f32, encode matrix u8)
 
     def _on(self, device):
@@ -66,14 +200,96 @@ class ReedSolomon:
         return torch.cat([data, parity.transpose(-1, -2)], dim=-2)
 
     def _decode_matrix(self, use: Tuple[int, ...]) -> np.ndarray:
+        """Inverse of the encode-matrix rows for the surviving shard set —
+        the survivor-pattern Gauss–Jordan, LRU-cached per pattern."""
         dec = self._decode_cache.get(use)
         if dec is None:
-            if len(self._decode_cache) >= _DECODE_CACHE_MAX:
-                self._decode_cache.clear()
-            dec = self._decode_cache[use] = gf256.gf_inv_matrix_np(
-                self.matrix[list(use)]
+            dec = self._decode_cache.put(
+                use, gf256.gf_inv_matrix_np(self.matrix[list(use)])
             )
         return dec
+
+    # ------------------------------------------------------------- host API
+    def encode_np(self, data: np.ndarray, device="cuda") -> np.ndarray:
+        """data (data_shards, B) uint8 → all shards (total_shards, B).
+        ``device`` is read only by the ``device`` backend."""
+        data = np.asarray(data, dtype=np.uint8)
+        assert data.shape[0] == self.data_shards
+        if self.parity_shards == 0:
+            return data.copy()
+        out = np.empty((self.total_shards, data.shape[1]), dtype=np.uint8)
+        out[: self.data_shards] = data
+        self.encode_into(out, device=device)
+        return out
+
+    def encode_into(self, shards: np.ndarray, device="cuda") -> np.ndarray:
+        """Fill the parity rows of a contiguous (total, B) buffer in place.
+
+        The zero-copy encode primitive: data rows are already where they
+        belong, parity is written into the tail of the same allocation.
+        """
+        assert shards.shape[0] == self.total_shards
+        if self.parity_shards:
+            self._apply_matrix(
+                ("parity",), self.parity_matrix, shards[: self.data_shards],
+                out=shards[self.data_shards:], device=device,
+            )
+        return shards
+
+    def reconstruct_np(self, shards: Sequence[Optional[bytes]],
+                       device="cuda") -> List[bytes]:
+        """Fill in missing (None) shards; needs ≥ data_shards present.
+
+        Mirrors ``ReedSolomon::reconstruct(&mut Vec<Option<_>>)``.
+        """
+        def decode(sub, use):
+            dec = self._decode_matrix(tuple(use))
+            data = self._apply_matrix(("dec", tuple(use)), dec, sub,
+                                      device=device)
+            return (
+                self._apply_matrix(("full",), self.matrix, data,
+                                   device=device)
+                if self.parity_shards else data
+            )
+
+        return _reconstruct_optional(self, shards, decode)
+
+    def reconstruct_data_np(self, survivors: np.ndarray,
+                            use: Tuple[int, ...], device="cuda") -> np.ndarray:
+        """(data, B) data shards from the survivor rows ``use``; both the
+        inversion and the compiled apply are pattern-cached."""
+        dec = self._decode_matrix(tuple(use))
+        return self._apply_matrix(("dec", tuple(use)), dec, survivors,
+                                  device=device)
+
+    def _apply_matrix(self, key, matrix, data, out=None, device="cuda"):
+        """Backend-dispatched constant-matrix apply with cached artifacts.
+
+        ``key`` identifies the matrix in the per-coder caches (the matrix
+        itself is never rebuilt, and neither is its compiled form).
+        """
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        backend = resolve_backend()
+        if backend == "native":
+            out = _native().gf_matmul_simd(matrix, data, out=out)
+        elif backend == "device":
+            bits = _bits_on(self._bits_cache, key, matrix,
+                            gf256.gf_matrix_to_bits, device)
+            d = torch.from_numpy(data).to(bits.device)
+            res = gf256.gf_apply_bitmatrix(d.T, bits).T.contiguous().cpu().numpy()
+            if out is None:
+                out = res
+            else:
+                out[:] = res
+        else:
+            sched = self._sched_cache.get(key)
+            if sched is None:
+                sched = self._sched_cache.put(
+                    key,
+                    gf256.build_xor_schedule(gf256.gf_matrix_to_bits(matrix)),
+                )
+            out = gf256.apply_xor_schedule(sched, data, out=out)
+        return _count(backend, out)
 
     def decode_bits(self, use: Tuple[int, ...]) -> np.ndarray:
         """Constant bit matrix rebuilding the data shards from rows ``use``."""
@@ -110,7 +326,11 @@ class ReedSolomon16:
         ):
             raise ValueError("not a systematic encode matrix")
         self.parity_matrix = self.matrix[data_shards:]
-        self._decode_cache: dict = {}
+        # decode-side artifacts keyed by (matrix, erasure-pattern) — same
+        # bounded-LRU policy as the GF(2^8) coder
+        self._decode_cache = _Lru()
+        self._sched_cache = _Lru()
+        self._bits_cache = _Lru()
         # device → (parity bits f32, encode matrix i32), made once per device
         self._dev: dict = {}
 
@@ -159,6 +379,17 @@ class ReedSolomon16:
         parity = gf16.gf_matmul_np(self.parity_matrix, self._to_symbols(data))
         return np.concatenate([data, self._from_symbols(parity)], axis=0)
 
+    def encode_into(self, shards: np.ndarray, device="cuda") -> np.ndarray:
+        """Same in-place contract as :meth:`ReedSolomon.encode_into`.  The
+        GF(2^16) encode is the host table product on every backend (as the
+        reference's), so ``device`` is not read."""
+        assert shards.shape[0] == self.total_shards
+        if self.parity_shards:
+            D = self._to_symbols(shards[: self.data_shards])
+            parity = gf16.gf_matmul_np(self.parity_matrix, D)
+            shards[self.data_shards:] = self._from_symbols(parity)
+        return shards
+
     def encode(self, data: torch.Tensor) -> torch.Tensor:
         """uint8 (..., data_shards, B) → (..., total_shards, B), B even."""
         if self.parity_shards == 0:
@@ -171,18 +402,106 @@ class ReedSolomon16:
         (the survivor-pattern Gauss–Jordan, cached per pattern)."""
         dec = self._decode_cache.get(use)
         if dec is None:
-            if len(self._decode_cache) >= _DECODE_CACHE_MAX:
-                self._decode_cache.clear()
-            dec = self._decode_cache[use] = gf16.gf_inv_matrix_np(
-                self.matrix[list(use)]
+            dec = self._decode_cache.put(
+                use, gf16.gf_inv_matrix_np(self.matrix[list(use)])
             )
         return dec
 
-    def reconstruct_data_np(self, survivors: np.ndarray, use: Tuple[int, ...]) -> np.ndarray:
+    def _apply_matrix(self, key, matrix, data, device="cuda"):
+        """Backend-dispatched constant-matrix apply with cached artifacts.
+
+        The native SIMD kernel is GF(2^8)-only, so ``native`` routes to the
+        numpy path here (byte-identical).  The numpy path runs the GF(2^8)
+        coder's bitmatrix-XOR schedule: a u16 symbol is its two
+        little-endian bytes, so a (k, B) shard block becomes (2k, B/2)
+        interleaved byte rows (row 2k = low bytes, row 2k+1 = high bytes of
+        symbol row k — the ``k*16 + bit`` input numbering of
+        :func:`gf16.gf_matrix_to_bits`).  Above ``_SCHED_MAX_COLS`` matrix
+        columns the schedule compile is skipped and the log/exp table
+        product is used.  ``device`` runs the GF(2^16) bit-plane product on
+        that device.
+        """
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        backend = resolve_backend()
+        if backend == "device":
+            bits = _bits_on(self._bits_cache, key, matrix,
+                            gf16.gf_matrix_to_bits, device)
+            d = torch.from_numpy(data).to(bits.device)
+            out = gf16.gf_apply_bitmatrix(d, bits).contiguous().cpu().numpy()
+        else:
+            backend = "numpy"  # the native kernel is GF(2^8)-only
+            k, B = data.shape
+            r = matrix.shape[0]
+            if matrix.shape[1] <= _SCHED_MAX_COLS:
+                sched = self._sched_cache.get(key)
+                if sched is None:
+                    sched = self._sched_cache.put(
+                        key,
+                        gf256.build_xor_schedule(gf16.gf_matrix_to_bits(matrix)),
+                    )
+                half = B // 2
+                d2 = data.reshape(k, half, 2).transpose(0, 2, 1).reshape(2 * k, half)
+                r2 = gf256.apply_xor_schedule(sched, d2)
+                out = np.ascontiguousarray(
+                    r2.reshape(r, 2, half).transpose(0, 2, 1).reshape(r, B)
+                )
+            else:
+                out = self._from_symbols(
+                    gf16.gf_matmul_np(matrix, self._to_symbols(data))
+                )
+        return _count(backend, out)
+
+    def reconstruct_data_np(self, survivors: np.ndarray, use: Tuple[int, ...],
+                            device="cuda") -> np.ndarray:
         """(data, B) data shards from the survivor rows ``use`` (host): the
-        decode matrix applied with :func:`gf16.gf_matmul_np`."""
+        pattern-cached inversion, then the backend's apply."""
         dec = self.decode_matrix(tuple(use))
-        return self._from_symbols(gf16.gf_matmul_np(dec, self._to_symbols(survivors)))
+        return self._apply_matrix(("dec", tuple(use)), dec, survivors,
+                                  device=device)
+
+    def reconstruct_np(self, shards: Sequence[Optional[bytes]],
+                       device="cuda") -> List[bytes]:
+        """Fill in missing (None) shards; needs ≥ data_shards present.
+        Same contract as :meth:`ReedSolomon.reconstruct_np` (object mode's
+        ``Broadcast`` decodes through it at N > 256)."""
+        def decode(sub, use):
+            return self.encode_np(self.reconstruct_data_np(sub, use,
+                                                           device=device))
+
+        return _reconstruct_optional(self, shards, decode, even_len=True)
+
+
+def _reconstruct_optional(coder, shards, decode, even_len: bool = False):
+    """Shared fill-in-missing-shards driver for both coders.
+
+    ``decode(sub, use) -> full`` rebuilds all shards from the first
+    data_shards survivors; validation (counts, lengths, the GF(2^16)
+    even-length requirement) lives here exactly once.
+    """
+    present = [i for i, s in enumerate(shards) if s is not None]
+    if len(present) < coder.data_shards:
+        raise ValueError(
+            f"too few shards: {len(present)} < {coder.data_shards}"
+        )
+    if len(shards) != coder.total_shards:
+        raise ValueError("wrong shard count")
+    shard_len = len(shards[present[0]])
+    if (even_len and shard_len % 2) or any(
+        len(shards[i]) != shard_len for i in present
+    ):
+        raise ValueError("inconsistent/odd shard lengths")
+    use = tuple(present[: coder.data_shards])
+    sub = np.stack(
+        [np.frombuffer(shards[i], dtype=np.uint8) for i in use]
+    )
+    full = decode(sub, use)
+    out: List[bytes] = []
+    for i in range(coder.total_shards):
+        if shards[i] is not None:
+            out.append(bytes(shards[i]))
+        else:
+            out.append(full[i].tobytes())
+    return out
 
 
 @functools.lru_cache(maxsize=256)

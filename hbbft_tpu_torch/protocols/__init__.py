@@ -1,18 +1,20 @@
-"""Host protocol types that the multi-epoch drivers of ``parallel/`` need.
+"""The sans-I/O protocol stack (object mode) and its committed types.
 
-Copies of the JAX package's ``protocols/`` modules, cut to the least set
-``parallel/qhb.py`` and ``parallel/dhb.py`` use, with imports re-pointed at
-the port's ``crypto/tc.py``, ``crypto/bls12_381.py``, ``netinfo.py`` and
-``crypto/batch.py``:
+Copies of the JAX package's ``protocols/`` modules, with imports re-pointed
+at the port's ``crypto/``, ``ops/``, ``netinfo.py``, ``traits.py`` and
+``fault_log.py``:
 
-- ``wire`` — the canonical byte codec of what rides in a contribution;
-- ``sync_key_gen`` — the DKG (``SyncKeyGen``, ``Part``, ``Ack``), its
-  commitment checks on the device ladder above the batch thresholds;
-- ``honey_badger`` — ``EncryptionSchedule``;
-- ``dynamic_honey_badger`` — votes, signed key-gen messages, the internal
-  contribution, ``DhbBatch`` and ``JoinPlan``;
-- ``queueing_honey_badger`` — ``TransactionQueue`` and its tx codec.
+- ``broadcast`` (RBC), ``binary_agreement`` (ABA), ``subset`` (ACS),
+  ``threshold_sign`` (the common coin), ``threshold_decrypt``;
+- ``honey_badger``, ``dynamic_honey_badger``, ``queueing_honey_badger``,
+  each with its builder; the builders' ``device`` (default ``"cuda"``,
+  raising without a card) reaches every ``crypto/batch.py`` call and the
+  ``device`` erasure backend of ``ops/rs.py``;
+- ``sync_key_gen`` (the DKG), ``wire`` (the canonical codec and the
+  message registry).
 
-The object-mode state machines (broadcast, binary agreement, subset, the
-message registry) are not ported.  This package imports nothing itself.
+The array-mode drivers of ``parallel/`` use the committed types
+(``EncryptionSchedule``, the DHB votes and key-gen messages, ``DhbBatch``,
+``JoinPlan``, ``TransactionQueue``).  ``sender_queue`` and ``vid`` are not
+ported yet.  This package imports nothing itself.
 """

@@ -1,9 +1,15 @@
-"""Canonical byte codec for what rides inside a contribution.
+"""Canonical byte codec: contributions, committed batches, protocol messages.
 
-A copy of the first part of the JAX package's ``protocols/wire.py``: the
-``Reader``, the framing helpers, node ids and the crypto objects that DKG
-and vote messages carry, with imports re-pointed at the port's ``crypto``.
-The full message registry (object-mode messages) is not ported.
+The port's copy of the JAX package's ``protocols/wire.py`` (the reference
+uses ``bincode``+serde at this boundary; this is an explicit deterministic
+tag-length-value codec): the ``Reader``, the framing helpers, node ids, the
+crypto objects that DKG and vote messages carry, ``batch_bytes`` (the
+ledger digest's canonical batch bytes) and the message registry
+(``encode_message`` / ``decode_message``) of every object-mode message:
+broadcast, binary agreement, threshold sign and decrypt, subset, HoneyBadger
+and DynamicHoneyBadger.  The sender-queue, VID, flight-recorder and
+state-sync records are registered with their modules, which are not ported
+yet.
 
 Node ids are restricted to ints and strings on the wire.
 """
@@ -23,16 +29,18 @@ NodeId = Hashable
 # 8 MiB around N ≈ 880; it is resolved at call time, so assigning
 # ``wire.MAX_BLOB_BYTES`` raises it.
 MAX_BLOB_BYTES = 8 * 2**20
+MAX_MESSAGE_BYTES = MAX_BLOB_BYTES + 4096
 
 
 class Reader:
-    __slots__ = ("data", "pos", "max_blob")
+    __slots__ = ("data", "pos", "max_blob", "_depth")
 
     def __init__(self, data: bytes, max_blob: Optional[int] = None):
         self.data = data
         self.pos = 0
         # resolved at call time so deployments can raise the module knob
         self.max_blob = MAX_BLOB_BYTES if max_blob is None else max_blob
+        self._depth = 0
 
     def take(self, n: int) -> bytes:
         if n < 0:
@@ -76,6 +84,9 @@ class Reader:
             )
         return self.take(n)
 
+    def f64(self) -> float:
+        return struct.unpack(">d", self.take(8))[0]
+
     def done(self) -> bool:
         return self.pos == len(self.data)
 
@@ -92,6 +103,12 @@ def u32(v: int) -> bytes:
 
 def u64(v: int) -> bytes:
     return struct.pack(">Q", v)
+
+
+def f64(v: float) -> bytes:
+    """IEEE-754 big-endian double — byte-deterministic for a given float
+    value."""
+    return struct.pack(">d", v)
 
 
 # -- node ids ---------------------------------------------------------------
@@ -155,3 +172,267 @@ def read_commitment_bivar(r: Reader) -> tc.BivarCommitment:
         for _ in range(degree + 1)
     ]
     return tc.BivarCommitment(degree, pts)
+
+
+# -- committed batches -------------------------------------------------------
+#
+# The canonical bytes every ledger-digest chain folds over: two drivers
+# that fold these produce the SAME chain for the same batch sequence.
+
+
+def _change_state_bytes(cs) -> bytes:
+    """The batch's validator-set change decision is consensus output too —
+    a fork in DKG/membership state must show in the ledger digest."""
+    out = blob(cs.state.encode())
+    out += cs.change.to_bytes() if cs.change is not None else b"\x00"
+    return out
+
+
+def batch_bytes(b) -> bytes:
+    """Canonical bytes of a committed batch for the ledger digest chain."""
+    from hbbft_tpu_torch.protocols.dynamic_honey_badger import DhbBatch
+    from hbbft_tpu_torch.protocols.honey_badger import Batch as HbBatch
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import QhbBatch
+
+    if isinstance(b, QhbBatch):
+        out = b"qhb" + u64(b.era) + u64(b.epoch)
+        for proposer, txs in b.contributions:
+            out += node_id(proposer) + u32(len(txs))
+            for tx in txs:
+                out += blob(tx)
+        return out + _change_state_bytes(b.change)
+    if isinstance(b, DhbBatch):
+        out = b"dhb" + u64(b.era) + u64(b.epoch)
+        for proposer, payload in b.contributions:
+            out += node_id(proposer) + blob(payload)
+        return out + _change_state_bytes(b.change)
+    if isinstance(b, HbBatch):
+        out = b"hb" + u64(b.epoch)
+        for proposer, payload in b.contributions:
+            out += node_id(proposer) + blob(payload)
+        return out
+    raise TypeError(f"unknown batch type {type(b).__name__}")
+
+
+# ===========================================================================
+# Full protocol-message wire format
+# ===========================================================================
+#
+# The reference serializes EVERY message with serde/bincode; this is the
+# equivalent explicit codec: ``encode_message``/``decode_message`` cover the
+# complete message surface of the stack (RBC, ABA, threshold sign/decrypt,
+# subset and honey-badger wrappers, DHB era messages).  Deterministic and
+# self-delimiting.
+
+_MSG_TAGS = {}
+_MSG_DECODERS = {}
+
+
+def _register(tag: int, cls, enc, dec):
+    _MSG_TAGS[cls] = (tag, enc)
+    _MSG_DECODERS[tag] = dec
+
+
+def encode_message(msg) -> bytes:
+    """Any protocol message object → canonical bytes."""
+    _lazy_register()
+    try:
+        tag, enc = _MSG_TAGS[type(msg)]
+    except KeyError:
+        raise TypeError(f"no wire encoding for {type(msg).__name__}")
+    return bytes([tag]) + enc(msg)
+
+
+def decode_message(data: bytes, max_bytes: Optional[int] = None,
+                   max_blob: Optional[int] = None):
+    """Canonical bytes → message object.  ``max_blob`` overrides the
+    Reader's per-blob cap (a caller whose payloads are already
+    length-bounded may pass ``len(data)``)."""
+    _lazy_register()
+    if max_bytes is None:
+        max_bytes = MAX_MESSAGE_BYTES
+    if len(data) > max_bytes:
+        raise ValueError(
+            f"message of {len(data)} bytes exceeds cap {max_bytes}"
+        )
+    r = Reader(data, max_blob=max_blob)
+    msg = _read_message(r)
+    if not r.done():
+        raise ValueError("trailing bytes after message")
+    return msg
+
+
+_MAX_NESTING = 8
+
+
+def _read_message(r: Reader):
+    # hand-inlined tag read + explicit depth bookkeeping (no try/finally,
+    # no getattr): this function runs once per nesting level of every
+    # message on the runtime's hot path.  On a decode error the Reader is
+    # abandoned whole, so the depth only needs restoring on success.
+    depth = r._depth
+    if depth >= _MAX_NESTING:
+        raise ValueError("message nesting too deep")
+    pos = r.pos
+    data = r.data
+    if pos >= len(data):
+        raise ValueError(f"truncated: need 1 byte at offset {pos}, have 0")
+    tag = data[pos]
+    r.pos = pos + 1
+    dec = _MSG_DECODERS.get(tag)
+    if dec is None:
+        raise ValueError(f"unknown message tag 0x{tag:02x}")
+    r._depth = depth + 1
+    msg = dec(r)
+    r._depth = depth
+    return msg
+
+
+def _lazy_register():
+    """Message classes live across protocol modules that import this one —
+    register on first use to avoid import cycles."""
+    if _MSG_TAGS:
+        return
+    from hbbft_tpu_torch.ops.merkle import Proof
+    from hbbft_tpu_torch.protocols.binary_agreement import (
+        AuxMsg, BValMsg, ConfMsg, CoinMsg, TermMsg,
+    )
+    from hbbft_tpu_torch.protocols.broadcast import (
+        CanDecodeMsg, EchoHashMsg, EchoMsg, ReadyMsg, ValueMsg,
+    )
+    from hbbft_tpu_torch.protocols.dynamic_honey_badger import (
+        HbWrap, KeyGenWrap, SignedKeyGenMsg,
+    )
+    from hbbft_tpu_torch.protocols.honey_badger import (
+        DecryptionShareWrap, SubsetWrap,
+    )
+    from hbbft_tpu_torch.protocols.subset import AgreementWrap, BroadcastWrap
+    from hbbft_tpu_torch.protocols.threshold_decrypt import DecryptionMessage
+    from hbbft_tpu_torch.protocols.threshold_sign import ThresholdSignMessage
+
+    def boolb(v: bool) -> bytes:
+        return b"\x01" if v else b"\x00"
+
+    def read_bool(r: Reader) -> bool:
+        b = r.take(1)
+        if b not in (b"\x00", b"\x01"):
+            raise ValueError("bad bool")
+        return b == b"\x01"
+
+    def proof_bytes(p: Proof) -> bytes:
+        out = blob(p.value) + u32(p.index) + p.root_hash + u32(len(p.path))
+        for digest, on_left in p.path:
+            out += digest + (b"\x01" if on_left else b"\x00")
+        return out
+
+    def read_proof(r: Reader) -> Proof:
+        value = r.blob()
+        index = r.u32()
+        root = r.take(32)
+        n = r.u32()
+        if n > 64:
+            raise ValueError("absurd proof depth")
+        path = tuple((r.take(32), read_bool(r)) for _ in range(n))
+        return Proof(value=value, index=index, root_hash=root, path=path)
+
+    def boolset_byte(s) -> bytes:
+        return bytes([(False in s) | ((True in s) << 1)])
+
+    def read_boolset(r: Reader):
+        b = r.take(1)[0]
+        if b > 3:
+            raise ValueError("bad boolset")
+        out = set()
+        if b & 1:
+            out.add(False)
+        if b & 2:
+            out.add(True)
+        return frozenset(out)
+
+    # RBC ------------------------------------------------------------------
+    _register(0x10, ValueMsg,
+              lambda m: proof_bytes(m.proof),
+              lambda r: ValueMsg(read_proof(r)))
+    _register(0x11, EchoMsg,
+              lambda m: proof_bytes(m.proof),
+              lambda r: EchoMsg(read_proof(r)))
+    _register(0x12, ReadyMsg,
+              lambda m: m.root,
+              lambda r: ReadyMsg(r.take(32)))
+    _register(0x13, EchoHashMsg,
+              lambda m: m.root,
+              lambda r: EchoHashMsg(r.take(32)))
+    _register(0x14, CanDecodeMsg,
+              lambda m: m.root,
+              lambda r: CanDecodeMsg(r.take(32)))
+    # ABA ------------------------------------------------------------------
+    _register(0x20, BValMsg,
+              lambda m: u64(m.epoch) + boolb(m.value),
+              lambda r: BValMsg(r.u64(), read_bool(r)))
+    _register(0x21, AuxMsg,
+              lambda m: u64(m.epoch) + boolb(m.value),
+              lambda r: AuxMsg(r.u64(), read_bool(r)))
+    _register(0x22, ConfMsg,
+              lambda m: u64(m.epoch) + boolset_byte(m.values),
+              lambda r: ConfMsg(r.u64(), read_boolset(r)))
+    _register(0x23, TermMsg,
+              lambda m: boolb(m.value),
+              lambda r: TermMsg(read_bool(r)))
+    _register(0x24, CoinMsg,
+              lambda m: u64(m.epoch) + encode_message(m.msg),
+              lambda r: CoinMsg(r.u64(), _read_message(r)))
+    # threshold primitives --------------------------------------------------
+    _register(0x30, ThresholdSignMessage,
+              lambda m: blob(m.share.to_bytes()),
+              lambda r: ThresholdSignMessage(
+                  tc.SignatureShare.from_bytes(r.blob())))
+    _register(0x31, DecryptionMessage,
+              lambda m: blob(m.share.to_bytes()),
+              lambda r: DecryptionMessage(
+                  tc.DecryptionShare.from_bytes(r.blob())))
+    # subset ----------------------------------------------------------------
+    _register(0x40, BroadcastWrap,
+              lambda m: node_id(m.proposer_id) + encode_message(m.msg),
+              lambda r: BroadcastWrap(read_node_id(r), _read_message(r)))
+    _register(0x41, AgreementWrap,
+              lambda m: node_id(m.proposer_id) + encode_message(m.msg),
+              lambda r: AgreementWrap(read_node_id(r), _read_message(r)))
+    # honey badger ----------------------------------------------------------
+    _register(0x50, SubsetWrap,
+              lambda m: u64(m.epoch) + encode_message(m.msg),
+              lambda r: SubsetWrap(r.u64(), _read_message(r)))
+    _register(0x51, DecryptionShareWrap,
+              lambda m: (u64(m.epoch) + node_id(m.proposer_id)
+                         + encode_message(m.msg)),
+              lambda r: DecryptionShareWrap(
+                  r.u64(), read_node_id(r), _read_message(r)))
+    # dynamic honey badger --------------------------------------------------
+    def enc_skg(m: SignedKeyGenMsg) -> bytes:
+        kind = b"\x01" if m.kind == "part" else b"\x02"
+        return (u64(m.era) + node_id(m.sender) + kind + blob(m.payload)
+                + signature(m.sig))
+
+    def dec_skg(r: Reader) -> SignedKeyGenMsg:
+        era = r.u64()
+        sender = read_node_id(r)
+        kb = r.take(1)
+        if kb == b"\x01":
+            kind = "part"
+        elif kb == b"\x02":
+            kind = "ack"
+        else:
+            raise ValueError("bad keygen kind")
+        payload = r.blob()
+        sig = read_signature(r)
+        return SignedKeyGenMsg(era, sender, kind, payload, sig)
+
+    _register(0x60, HbWrap,
+              lambda m: u64(m.era) + encode_message(m.msg),
+              lambda r: HbWrap(r.u64(), _read_message(r)))
+    _register(0x61, KeyGenWrap,
+              lambda m: u64(m.era) + enc_skg(m.msg),
+              lambda r: KeyGenWrap(r.u64(), dec_skg(r)))
+
+
+def ensure_registered():
+    _lazy_register()

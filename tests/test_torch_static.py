@@ -13,6 +13,15 @@ PORT_FILES = sorted((ROOT / "hbbft_tpu_torch").rglob("*.py")) + [ROOT / "chip_sm
 # the mesh modules, named so that a move out of the package fails here
 MESH_FILES = [ROOT / "hbbft_tpu_torch" / "parallel" / "mesh.py",
               ROOT / "hbbft_tpu_torch" / "graft_entry.py"]
+# object mode: the protocol stack, the simulator and the CLI
+OBJECT_MODE_FILES = [ROOT / "hbbft_tpu_torch" / rel for rel in (
+    "traits.py", "fault_log.py", "simulation.py",
+    "sim/__init__.py", "sim/trace.py", "sim/virtual_net.py", "sim/adversary.py",
+    "protocols/broadcast.py", "protocols/binary_agreement.py",
+    "protocols/subset.py", "protocols/threshold_sign.py",
+    "protocols/threshold_decrypt.py", "protocols/honey_badger.py",
+    "protocols/dynamic_honey_badger.py", "protocols/queueing_honey_badger.py",
+    "protocols/wire.py")]
 
 
 def _imported_roots(path):
@@ -34,6 +43,69 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 @pytest.mark.parametrize("path", MESH_FILES, ids=lambda p: p.name)
 def test_mesh_modules_are_held_to_the_import_rule(path):
     assert path in PORT_FILES
+
+
+@pytest.mark.parametrize("path", OBJECT_MODE_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT / "hbbft_tpu_torch")))
+def test_object_mode_modules_are_held_to_the_import_rule(path):
+    assert path in PORT_FILES
+
+
+def test_object_mode_builders_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The object-mode builders, protocols with a device seam, the CLI (a
+    ``NetBuilder`` user) and the ``device`` erasure backend default to
+    ``cuda`` and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    import random
+
+    import numpy as np
+
+    from hbbft_tpu_torch import simulation
+    from hbbft_tpu_torch.crypto import tc
+    from hbbft_tpu_torch.netinfo import NetworkInfo
+    from hbbft_tpu_torch.ops import rs
+    from hbbft_tpu_torch.protocols.broadcast import Broadcast
+    from hbbft_tpu_torch.protocols.dynamic_honey_badger import DynamicHoneyBadger
+    from hbbft_tpu_torch.protocols.honey_badger import HoneyBadger, HoneyBadgerBuilder
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import QueueingHoneyBadger
+    from hbbft_tpu_torch.protocols.subset import Subset
+    from hbbft_tpu_torch.protocols.threshold_decrypt import ThresholdDecrypt
+    from hbbft_tpu_torch.sim import NetBuilder
+
+    nets = NetworkInfo.generate_map([0, 1, 2, 3], random.Random(1))
+    sk = nets[0].secret_key()
+    plan = DynamicHoneyBadger(nets[0], sk, device="cpu").join_plan()
+    for make in (
+        lambda: HoneyBadgerBuilder(nets[0]).build(),
+        lambda: HoneyBadger.builder(nets[0]).session_id(b"s").build(),
+        lambda: HoneyBadger(nets[0]),
+        lambda: DynamicHoneyBadger.builder(nets[0], sk).build(),
+        lambda: DynamicHoneyBadger(nets[0], sk),
+        lambda: DynamicHoneyBadger.from_join_plan(9, tc.SecretKey.random(random.Random(2)), plan),
+        lambda: QueueingHoneyBadger.builder(DynamicHoneyBadger.builder(nets[0], sk).build()).build(),
+        lambda: Subset(nets[0], b"s"),
+        lambda: Broadcast(nets[0], 0),
+        lambda: ThresholdDecrypt(nets[0]),
+        lambda: NetBuilder([0, 1, 2, 3]).using_step(
+            lambda nid: HoneyBadger.builder(nets[nid]).build()),
+        lambda: simulation.main(["--nodes", "4"]),
+        lambda: simulation.main(["--nodes", "4", "--batched"]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    # the builders' device reaches what they build
+    hb = HoneyBadger.builder(nets[0]).device("cpu").build()
+    dhb = DynamicHoneyBadger.builder(nets[0], sk).device("cpu").build()
+    qhb = QueueingHoneyBadger.builder(dhb).build()
+    assert hb.device == dhb.device == qhb.dhb.hb.device == torch.device("cpu")
+    # the erasure backend ``device`` runs on the caller's device, cuda unless told
+    monkeypatch.setenv("HBBFT_ERASURE_BACKEND", "device")
+    coder = rs.for_n_f(4, 1)
+    data = np.zeros((2, 8), dtype=np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        coder.encode_np(data)
+    assert coder.encode_np(data, device="cpu").shape == (4, 8)
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
@@ -98,9 +170,9 @@ def test_drivers_default_to_cuda_and_raise_without_it():
 
 
 def test_protocols_package_loads_neither_jax_nor_the_jax_package():
-    """Importing the port's host protocol types (and the drivers over them)
-    in a fresh interpreter adds no module of ``jax`` or ``hbbft_tpu`` to
-    ``sys.modules``."""
+    """Importing the port's protocol stack, the drivers, the simulator and
+    the CLI (and registering every wire message) in a fresh interpreter
+    adds no module of ``jax`` or ``hbbft_tpu`` to ``sys.modules``."""
     import os
     import subprocess
     import sys
@@ -112,9 +184,12 @@ def test_protocols_package_loads_neither_jax_nor_the_jax_package():
         "import hbbft_tpu_torch.protocols.dynamic_honey_badger\n"
         "import hbbft_tpu_torch.protocols.queueing_honey_badger\n"
         "import hbbft_tpu_torch.parallel.dhb, hbbft_tpu_torch.parallel.qhb\n"
+        "import hbbft_tpu_torch.simulation, hbbft_tpu_torch.sim, hbbft_tpu_torch.traits\n"
+        "import hbbft_tpu_torch.protocols.wire as w; w.ensure_registered()\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'hbbft_tpu'))\n"
         "assert 'hbbft_tpu_torch.protocols.sync_key_gen' in new\n"
+        "assert 'hbbft_tpu_torch.protocols.broadcast' in new\n"
         "print(bad)\n"
     )
     env = {**os.environ,
