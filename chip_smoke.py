@@ -7,6 +7,7 @@ on one NVIDIA card.
     python3 chip_smoke.py --phases qhb64,dhb --dhb-n 16   # the drivers; dhb at N = 16
     python3 chip_smoke.py --phases epoch4096,sustained4096   # BASELINE config 5
     python3 chip_smoke.py --phases objsim   # object mode: the simulation CLI
+    python3 chip_smoke.py --phases vidsim   # the node stack on VirtualNet at N = 22
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -133,7 +134,22 @@ Phases, one JSON line each; any failure exits non-zero:
     the same ledger gates, one ``ladder_window`` launch for each share-set
     fold of ≥ 8 rows and none else, the first 32 folds held against the
     host loop; wall seconds, cranks, messages and messages/s.
-20. ``kernels``: every kernel with its launches, errors and times; then the
+20. ``vidsim``: the node stack without the network at N = 22, f = 7, on
+    ``VirtualNet`` under the device erasure backend, every node built as
+    the reference's ``net/cluster.py`` ``build_algo`` builds it with
+    encryption always, 64 transactions of 250 B a node, node 21's links
+    capped (``bandwidth-asym``): (a) ``SenderQueue(VidQueueingHoneyBadger
+    (DHB))`` to quiescence, node 0 snapshotted after its first committed
+    epoch (byte-identical when taken twice and after a restore, no CUDA
+    tensor), then every commitment retrieved from k = 8 shards by the
+    nodes' ``RetrieveService``s — the same (proposer, certificate) list on
+    every node, every payload equal to its proposer's, every transaction
+    committed once, no fault; (b) ``SenderQueue(QueueingHoneyBadger(DHB))``
+    on the same network with the same gates but retrieval.  Both: one
+    ``ladder_window`` launch a share-set fold and no other launch, every
+    erasure product on the device; crank-loop seconds, cranks, messages,
+    virtual time, the shaper's counters, VID's counters and a host split.
+21. ``kernels``: every kernel with its launches, errors and times; then the
     whole run's seconds.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
@@ -2291,6 +2307,31 @@ def _device_calls(B):
 
 
 @contextlib.contextmanager
+def _timed_calls(targets):
+    """Seconds and calls of each ``(owner, attribute, label)`` function
+    while the block runs (labels may repeat: their counts add up)."""
+    split = {label: {"s": 0.0, "calls": 0} for _, _, label in targets}
+    saved = []
+    for owner, name, label in targets:
+        fn = vars(owner)[name]
+        saved.append((owner, name, fn))
+
+        def timed(*args, _fn=fn, _rec=split[label], **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                _rec["s"] += time.perf_counter() - t
+                _rec["calls"] += 1
+
+        setattr(owner, name, timed)
+    try:
+        yield split
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
 def _host_split():
     """Seconds and calls of object mode's leaf host work while the block
     runs: the pairing checks, hash-to-G2 and G1/G2 scalar muls of
@@ -2309,26 +2350,7 @@ def _host_split():
                (trace, "wire_size", "wire_size")]
     if merkle._batch_fn is not None:
         targets.append((merkle, "_batch_fn", "merkle_sha3"))
-    split = {label: {"s": 0.0, "calls": 0} for _, _, label in targets}
-    saved = []
-    for owner, name, label in targets:
-        fn = getattr(owner, name)
-        saved.append((owner, name, vars(owner)[name]))
-
-        def timed(*args, _fn=fn, _rec=split[label], **kw):
-            t = time.perf_counter()
-            try:
-                return _fn(*args, **kw)
-            finally:
-                _rec["s"] += time.perf_counter() - t
-                _rec["calls"] += 1
-
-        setattr(owner, name, timed)
-    try:
-        yield split
-    finally:
-        for owner, name, orig in reversed(saved):
-            setattr(owner, name, orig)
+    return _timed_calls(targets)
 
 
 def _objsim_run(argv, backend: str, split: bool = False):
@@ -2464,6 +2486,332 @@ def phase_objsim(ctx):
     out["n22"] = rec
     ctx["objsim_launches"] = rec["launches"]
     ctx["objsim_folds"] = rec["device_folds"]
+    return out
+
+
+# vidsim: the node stack without the network.  Every node is the standard
+# stack of the reference's net/cluster.py build_algo with encryption always
+# (ClusterConfig.encrypt): SenderQueue over VidQueueingHoneyBadger (a) or
+# QueueingHoneyBadger (b) over DynamicHoneyBadger, per-node seeded RNGs,
+# batches of 64, on VirtualNet at N = 22, f = 7, keys from objsim (b)'s seed
+# and its cost model.  Each node holds 64 distinct transactions of 250 B
+# (the HoneyBadgerBFT paper's size), so a proposal is ~16 KB.  Every link of
+# node 21 is capped (preset_shape("bandwidth-asym", 22), scaled by 1e-3 to
+# the virtual clock, as the chaos campaign scales a preset it has no entry
+# for).  The device erasure backend; t + 1 = 8 sends every share-set fold to
+# the windowed ladder kernel.
+VIDSIM_N = 22
+VIDSIM_KEY_SEED = 0  # objsim (b): simulation.py --seed 0
+VIDSIM_BATCH = 64
+VIDSIM_TXS_PER_NODE = 64
+VIDSIM_TX_BYTES = 250
+VIDSIM_SHAPE = "bandwidth-asym"
+VIDSIM_TIME_SCALE = 1e-3
+VIDSIM_DEVICE = "cuda"
+
+
+def _vidsim_txs(nid: int):
+    rng = random.Random(31_000 + nid)
+    return [b"%02d-%02d-" % (nid, i) + rng.randbytes(VIDSIM_TX_BYTES - 6)
+            for i in range(VIDSIM_TXS_PER_NODE)]
+
+
+def _vidsim_net(nets, vid: bool, trace):
+    """The N = 22 network of node stacks, each node's queue holding all but
+    one of its transactions; the last one, given as a ``TxInput``, makes the
+    node propose all 64 at once."""
+    from hbbft_tpu_torch.chaos.link import preset_shape
+    from hbbft_tpu_torch.protocols.dynamic_honey_badger import DynamicHoneyBadger
+    from hbbft_tpu_torch.protocols.honey_badger import EncryptionSchedule
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import QueueingHoneyBadger
+    from hbbft_tpu_torch.protocols.sender_queue import SenderQueue
+    from hbbft_tpu_torch.protocols.vid import VidQueueingHoneyBadger
+    from hbbft_tpu_torch.sim import CostModel, NetBuilder
+
+    def build_algo(nid):
+        dhb = DynamicHoneyBadger(
+            nets[nid], nets[nid].secret_key(), rng=random.Random(7000 + nid),
+            encryption_schedule=EncryptionSchedule.always(), device=VIDSIM_DEVICE)
+        cls = VidQueueingHoneyBadger if vid else QueueingHoneyBadger
+        qhb = cls(dhb, batch_size=VIDSIM_BATCH, rng=random.Random(8000 + nid))
+        qhb.queue.extend(_vidsim_txs(nid)[:-1])
+        return SenderQueue(qhb)
+
+    shape = preset_shape(VIDSIM_SHAPE, VIDSIM_N).scaled(VIDSIM_TIME_SCALE)
+    return (NetBuilder(list(range(VIDSIM_N))).trace(trace).cost_model(CostModel())
+            .shape(shape, seed=0).using_step(build_algo))
+
+
+def _coder_calls(rs):
+    """The GF(2^8) coder's host-API encodes and reconstructions (each
+    reconstruction is two products: the decode, then the re-encode)."""
+    return _timed_calls([(rs.ReedSolomon, "encode_into", "encodes"),
+                         (rs.ReedSolomon, "reconstruct_np", "reconstructs")])
+
+
+def _vid_stages():
+    """VID's own stages: the dispersal (encode, Merkle tree, our vote), each
+    vote's pairing check, each received shard's proof check and vote, and
+    each certificate's aggregated check at batch decode."""
+    from hbbft_tpu_torch.protocols import vid
+
+    return _timed_calls([(vid.Disperser, "disperse", "disperse"),
+                         (vid.Disperser, "handle_vote", "handle_vote"),
+                         (vid.Disperser, "handle_disperse", "handle_disperse"),
+                         (vid, "verify_cert", "verify_cert")])
+
+
+def _retrieve_all(net, n: int, f: int):
+    """Every node retrieves every commitment it did not propose from k = n −
+    2f shards: a plain FIFO loop between the nodes' ``RetrieveService``s
+    (the node runtime's routing of VidRetrieve / VidShard).  Returns the
+    services, each node's ``RetrievedPayload``s and the faults."""
+    from collections import deque
+
+    from hbbft_tpu_torch.net import RetrieveService
+    from hbbft_tpu_torch.protocols.vid import VidQhbBatch, VidRetrieve
+
+    ids = net.node_ids()
+    ni = net.nodes[ids[0]].algorithm.algo.dhb.netinfo
+    holders = tuple(sorted(ids, key=ni.node_index))
+    services = {nid: RetrieveService(nid, net.nodes[nid].algorithm.algo.store,
+                                     device=VIDSIM_DEVICE) for nid in ids}
+    queue, got, faults = deque(), {nid: [] for nid in ids}, []
+
+    def absorb(nid, step):
+        for tm in step.messages:
+            for dest in tm.target.resolve(ids, nid):
+                queue.append((nid, dest, tm.message))
+        got[nid].extend(step.output)
+        faults.extend((nid, fl.node_id, fl.kind.name) for fl in step.fault_log.faults)
+
+    for nid in ids:
+        for out in net.nodes[nid].outputs:
+            if isinstance(out, VidQhbBatch):
+                for proposer, cert in out.commitments():
+                    if proposer != nid:
+                        absorb(nid, services[nid].start(
+                            cert.root, cert.total_len, n, f, proposer, now=0.0,
+                            t_ordered=0.0, holders=holders))
+    while queue:
+        src, dst, msg = queue.popleft()
+        if isinstance(msg, VidRetrieve):
+            absorb(dst, services[dst].handle_retrieve(src, msg, 0.0))
+        else:
+            absorb(dst, services[dst].handle_shard(src, msg, 0.0))
+    return services, got, faults
+
+
+def _vidsim_snapshot(torch, stack, crank: int):
+    """(c): snapshot a stack mid-run; taken twice it is byte-identical, the
+    restored stack snapshots to the same bytes, and neither pickle holds a
+    CUDA tensor."""
+    from hbbft_tpu_torch import snapshot
+
+    t = time.perf_counter()
+    blob = snapshot.snapshot(stack)
+    plain = _pickle_without_cuda(torch, stack)  # raises on a CUDA tensor
+    restored = snapshot.restore(blob)
+    _pickle_without_cuda(torch, restored)
+    if snapshot.snapshot(stack) != blob or snapshot.snapshot(restored) != blob:
+        raise AssertionError("vidsim (c): the snapshot is not byte-identical (taken "
+                             "twice, or of the restored stack)")
+    return {"crank": crank, "bytes": len(blob), "plain_pickle_bytes": len(plain),
+            "seconds": time.perf_counter() - t, "byte_identical": True,
+            "restored_identical": True, "no_cuda_tensor": True,
+            "restored_type": type(restored).__name__,
+            "restored_device": str(restored.algo.dhb.device)}
+
+
+def _vidsim_run(nets, vid: bool):
+    """One stack to quiescence on the card under the device erasure backend,
+    launch counts zeroed just before and read just after; for the VID stack
+    node 0 is snapshotted after its first committed epoch (outside the
+    timed crank loop), and every commitment is retrieved after the loop."""
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.ops import rs
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import TxInput
+    from hbbft_tpu_torch.sim import EventLog
+
+    trace = EventLog()
+    net = _vidsim_net(nets, vid, trace)
+    stats0 = rs.stats_snapshot()
+    run = {"snapshot": None, "loop_s": 0.0}
+    with (_erasure_backend("device"), _device_calls(B) as calls, _coder_calls(rs) as coder,
+          _host_split() as host_s, _vid_stages() as vid_s):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        for nid in net.node_ids():
+            net.send_input(nid, TxInput(_vidsim_txs(nid)[-1]))
+        while net.crank() is not None:
+            if vid and run["snapshot"] is None and any(
+                    type(o).__name__ == "VidQhbBatch" for o in net.nodes[0].outputs):
+                run["loop_s"] += time.perf_counter() - t0
+                run["snapshot"] = _vidsim_snapshot(torch, net.nodes[0].algorithm, net.cranks)
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        run["loop_s"] += time.perf_counter() - t0
+        run["launches"] = dict(_build.LAUNCHES)
+    stats1 = rs.stats_snapshot()
+    run.update(calls=calls, coder={k: v["calls"] for k, v in coder.items()},
+               host_split=host_s, vid_stages=vid_s,
+               erasure={b: {k: stats1[b][k] - stats0[b][k] for k in stats1[b]}
+                        for b in stats1})
+    if vid:
+        with _erasure_backend("device"), _coder_calls(rs) as rcoder:
+            t1 = time.perf_counter()
+            run["services"], run["retrieved"], rfaults = _retrieve_all(
+                net, VIDSIM_N, nets[0].num_faulty())
+            torch.cuda.synchronize()
+            run["retrieval"] = {"s": time.perf_counter() - t1, "faults": rfaults,
+                                "coder": {k: v["calls"] for k, v in rcoder.items()},
+                                "device_products": rs.STATS["device"]["calls"]
+                                - stats1["device"]["calls"]}
+    return net, trace, run
+
+
+def _vidsim_check(net, run, vid: bool, all_txs):
+    """The gates of one stack: equal ordered sequences on every node, every
+    transaction committed once, no fault, one ladder_window launch a device
+    fold and no other launch, every erasure product on the device."""
+    from hbbft_tpu_torch.protocols import wire
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import QhbBatch, _de_txs
+    from hbbft_tpu_torch.protocols.vid import VidQhbBatch
+
+    what = "vidsim (a) VID" if vid else "vidsim (b) classic"
+    kind = VidQhbBatch if vid else QhbBatch
+    ids = net.node_ids()
+    batches = {nid: [o for o in net.nodes[nid].outputs if isinstance(o, kind)] for nid in ids}
+    seq = [wire.batch_bytes(b) for b in batches[0]]
+    if not seq or any([wire.batch_bytes(b) for b in v] != seq for v in batches.values()):
+        raise AssertionError(f"{what}: the nodes' ordered sequences differ")
+    faults = {nid: len(net.nodes[nid].faults_observed) for nid in ids}
+    if any(faults.values()):
+        raise AssertionError(f"{what}: faults logged {faults}")
+    if not net.quiescent:
+        raise AssertionError(f"{what}: the net is not quiescent")
+    out = {"epochs": len(seq)}
+    if vid:
+        certs = {nid: [(p, wire.encode_message(c)) for b in batches[nid]
+                       for p, c in b.commitments()] for nid in ids}
+        if any(v != certs[0] for v in certs.values()) or len(certs[0]) != VIDSIM_N:
+            raise AssertionError(f"{what}: the nodes order different (proposer, cert) lists")
+        svc, got = run["services"], run["retrieved"]
+        own = {nid: net.nodes[nid].algorithm.algo.disperser for nid in ids}
+        mism = sum(s.mismatches for s in svc.values())
+        fail = sum(s.failures for s in svc.values())
+        if mism or fail or run["retrieval"]["faults"]:
+            raise AssertionError(f"{what}: retrieval mismatches {mism}, failures {fail}, "
+                                 f"faults {run['retrieval']['faults']}")
+        ledgers = {}
+        for nid in ids:
+            by_root = {rp.root: rp for rp in got[nid]}
+            txs = []
+            for b in batches[nid]:
+                for proposer, cert in b.commitments():
+                    if proposer == nid:
+                        payload = own[nid].local_payload(cert.root)
+                    else:
+                        rp = by_root[cert.root]
+                        payload = rp.payload
+                        if payload != own[proposer].local_payload(cert.root):
+                            raise AssertionError(f"{what}: node {nid}'s retrieval of "
+                                                 f"{proposer}'s payload differs")
+                    txs.extend(_de_txs(payload))
+                for _, plain in b.plain_txs():
+                    txs.extend(plain)
+            ledgers[nid] = txs
+        retrieved = sum(s.retrieved for s in svc.values())
+        if retrieved != VIDSIM_N * (VIDSIM_N - 1):
+            raise AssertionError(f"{what}: {retrieved} retrievals, want "
+                                 f"{VIDSIM_N * (VIDSIM_N - 1)}")
+        if run["retrieval"]["device_products"] != 2 * run["retrieval"]["coder"]["reconstructs"] \
+                or run["retrieval"]["coder"]["reconstructs"] != retrieved:
+            raise AssertionError(f"{what}: retrieval's products {run['retrieval']}")
+        out.update(
+            certificates=len(certs[0]),
+            dispersals=sum(d.disperses for d in own.values()),
+            votes_cast=sum(d.votes_cast for d in own.values()),
+            certs_built=sum(d.certs for d in own.values()),
+            retrieval={"s": run["retrieval"]["s"], "retrieved": retrieved,
+                       "retrieves": sum(s.retrieves for s in svc.values()),
+                       "served": sum(s.served for s in svc.values()),
+                       "retries": sum(s.retries for s in svc.values()),
+                       "refusals": sum(s.refusals for s in svc.values()),
+                       "quota_drops": sum(s.quota_drops for s in svc.values()),
+                       "mismatches": mism, "failures": fail,
+                       "reconstructions": run["retrieval"]["coder"]["reconstructs"],
+                       "device_products": run["retrieval"]["device_products"]})
+    else:
+        ledgers = {nid: [tx for b in batches[nid] for _, txs in b.contributions for tx in txs]
+                   for nid in ids}
+    if any(v != ledgers[0] for v in ledgers.values()):
+        raise AssertionError(f"{what}: the nodes' ledgers differ")
+    if sorted(ledgers[0]) != sorted(all_txs):
+        raise AssertionError(f"{what}: {len(ledgers[0])} commits of {len(set(ledgers[0]))} "
+                             f"distinct transactions, {len(all_txs)} given: not each once")
+    calls, launches = run["calls"], run["launches"]
+    expected = calls["folds"] + calls["share_gens"]
+    if calls["folds"] == 0 or calls["host_folds"] or launches.get("ladder_window") != expected \
+            or any(v for k, v in launches.items() if k != "ladder_window"):
+        raise AssertionError(f"{what}: launches {launches}, device folds {calls['folds']}, "
+                             f"host folds {calls['host_folds']}")
+    er, coder = run["erasure"], run["coder"]
+    if er["native"]["calls"] or er["numpy"]["calls"] or \
+            er["device"]["calls"] != coder["encodes"] + 2 * coder["reconstructs"]:
+        raise AssertionError(f"{what}: erasure products {er}, coder calls {coder}")
+    if vid and coder["encodes"] < out["dispersals"]:
+        raise AssertionError(f"{what}: {coder['encodes']} encodes for "
+                             f"{out['dispersals']} dispersals")
+    out.update(committed=len(ledgers[0]), committed_once=True, faults=0)
+    return out
+
+
+def phase_vidsim(ctx):
+    """The node stack without the network at N = 22 on the card: (a) the VID
+    stack to quiescence, a snapshot of node 0 after its first committed
+    epoch, then every commitment retrieved; (b) the classic stack on the
+    same network, transactions and shape."""
+    import torch  # noqa: F401
+
+    from hbbft_tpu_torch.netinfo import NetworkInfo
+
+    nets = NetworkInfo.generate_map(list(range(VIDSIM_N)), random.Random(VIDSIM_KEY_SEED))
+    all_txs = [tx for nid in range(VIDSIM_N) for tx in _vidsim_txs(nid)]
+    out = {"smi": ctx["smi"], "n": VIDSIM_N, "f": nets[0].num_faulty(),
+           "batch_size": VIDSIM_BATCH, "txs": len(all_txs), "tx_bytes": VIDSIM_TX_BYTES,
+           "shape": f"{VIDSIM_SHAPE} x {VIDSIM_TIME_SCALE}"}
+    launches = {}
+    for key, vid in (("vid", True), ("classic", False)):
+        net, trace, run = _vidsim_run(nets, vid)
+        rec = _vidsim_check(net, run, vid, all_txs)
+        calls = run["calls"]
+        rec.update({
+            "crank_loop_s": run["loop_s"], "cranks": net.cranks,
+            "messages": net.messages_delivered, "messages_per_s": net.messages_delivered / run["loop_s"],
+            "wire_bytes": trace.total_bytes(), "virtual_time_s": net.virtual_time,
+            "shaper": net.shaper.stats(), "shaper_counters": dict(net.shaper.counters),
+            "sender_queue_buffered_peak": max(net.nodes[nid].algorithm.buffered_peak
+                                              for nid in net.node_ids()),
+            "launches": run["launches"], "device_folds": calls["folds"],
+            "host_folds": calls["host_folds"], "device_share_gens": calls["share_gens"],
+            "device_route_s": calls["device_s"],
+            "erasure_stats": run["erasure"], "coder_calls": run["coder"],
+            "host_split": run["host_split"], "vid_stages": run["vid_stages"],
+        })
+        if vid:
+            rec["snapshot"] = run["snapshot"]
+            if rec["snapshot"] is None:
+                raise AssertionError("vidsim (a): node 0 committed no epoch to snapshot after")
+        out[key] = rec
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    ctx["vidsim_launches"] = launches
+    ctx["vidsim_folds"] = out["vid"]["device_folds"] + out["classic"]["device_folds"]
     return out
 
 
@@ -2670,6 +3018,7 @@ def phase_kernels(ctx):
             "n4096": {"launches": launches_x["fp_mul_lazy"],
                       "shape": "none: it runs inside the ladder kernel"},
             "objsim22": {"launches": ctx["objsim_launches"]["fp_mul_lazy"]},
+            "vidsim22": {"launches": ctx["vidsim_launches"]["fp_mul_lazy"]},
         },
         {
             "name": "sha3_256", "route": "cuda",
@@ -2695,6 +3044,8 @@ def phase_kernels(ctx):
                        "run": "the N = 64 epoch sharded over a 1-rank NCCL mesh"},
             "objsim22": {"launches": ctx["objsim_launches"]["sha3_256"],
                          "run": "object mode hashes its Merkle trees on the host"},
+            "vidsim22": {"launches": ctx["vidsim_launches"]["sha3_256"],
+                         "run": "object mode hashes its Merkle trees on the host"},
         },
         {
             "name": "ladder_lazy", "route": "cuda",
@@ -2717,6 +3068,7 @@ def phase_kernels(ctx):
                           bits=LADDER_BITS, **lad_l["rows"])},
             "n4096": {"launches": launches_x["ladder_lazy"]},
             "objsim22": {"launches": ctx["objsim_launches"]["ladder_lazy"]},
+            "vidsim22": {"launches": ctx["vidsim_launches"]["ladder_lazy"]},
         },
         {
             "name": "ladder_window", "route": "cuda",
@@ -2747,6 +3099,10 @@ def phase_kernels(ctx):
                          "device_folds": ctx["objsim_folds"],
                          **window_sum([("g1", 16)]),
                          "run": "object mode at N = 22: one launch a share-set fold"},
+            "vidsim22": {"launches": ctx["vidsim_launches"]["ladder_window"],
+                         "device_folds": ctx["vidsim_folds"],
+                         "run": "the VID and the classic node stack at N = 22, one epoch "
+                                "each: one launch a share-set fold"},
         },
     ]
     return {"kernels": kernels}
@@ -2815,7 +3171,7 @@ def main() -> int:
               ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
               ("epoch4096", phase_epoch4096), ("sustained4096", phase_sustained4096),
               ("mesh", phase_mesh), ("coin256", phase_coin256), ("dkg256", phase_dkg256), ("dhb", phase_dhb),
-              ("objsim", phase_objsim)]
+              ("objsim", phase_objsim), ("vidsim", phase_vidsim)]
     only, ctx["dhb_n"] = _parse_args(sys.argv[1:], [n for n, _ in phases])
     ok = True
     for name, fn in phases:

@@ -95,6 +95,12 @@ class _Lru:
             self._d.popitem(last=False)
         return value
 
+    def __len__(self):
+        return len(self._d)
+
+    def __contains__(self, key):
+        return key in self._d
+
 
 _native_oracle = None
 _native_checked = False
@@ -178,6 +184,12 @@ class ReedSolomon:
         self._bits_cache = _Lru()
         self._dev: dict = {}  # device → (parity bits f32, encode matrix u8)
 
+    def __reduce__(self):
+        # a pickled protocol carries the coder's shape, not its caches: the
+        # caches hold device tensors, and the process's shared coder of that
+        # shape rebuilds them on its own device
+        return (_shared_coder, (type(self), self.data_shards, self.parity_shards))
+
     def _on(self, device):
         hit = self._dev.get(device)
         if hit is None:
@@ -235,6 +247,12 @@ class ReedSolomon:
                 out=shards[self.data_shards:], device=device,
             )
         return shards
+
+    def verify_np(self, shards: np.ndarray, device="cuda") -> bool:
+        """True iff parity shards are consistent with data shards."""
+        shards = np.asarray(shards, dtype=np.uint8)
+        return bool(np.array_equal(
+            self.encode_np(shards[: self.data_shards], device=device), shards))
 
     def reconstruct_np(self, shards: Sequence[Optional[bytes]],
                        device="cuda") -> List[bytes]:
@@ -333,6 +351,8 @@ class ReedSolomon16:
         self._bits_cache = _Lru()
         # device → (parity bits f32, encode matrix i32), made once per device
         self._dev: dict = {}
+
+    __reduce__ = ReedSolomon.__reduce__
 
     @functools.cached_property
     def _parity_bits(self) -> np.ndarray:
@@ -505,9 +525,14 @@ def _reconstruct_optional(coder, shards, decode, even_len: bool = False):
 
 
 @functools.lru_cache(maxsize=256)
+def _shared_coder(cls, data_shards: int, parity_shards: int):
+    """The process's one coder of a class and shape (what an unpickled
+    coder becomes)."""
+    return cls(data_shards, parity_shards)
+
+
 def for_n_f(n: int, f: int):
     """The RBC coder for an (n, f) network: data = n−2f, parity = 2f —
     GF(2^8) up to 256 shards, GF(2^16) beyond."""
-    if n <= 256:
-        return ReedSolomon(n - 2 * f, 2 * f)
-    return ReedSolomon16(n - 2 * f, 2 * f)
+    cls = ReedSolomon if n <= 256 else ReedSolomon16
+    return _shared_coder(cls, n - 2 * f, 2 * f)

@@ -11,10 +11,13 @@ at the port's ``crypto/``, ``ops/``, ``netinfo.py``, ``traits.py`` and
   raising without a card) reaches every ``crypto/batch.py`` call and the
   ``device`` erasure backend of ``ops/rs.py``;
 - ``sync_key_gen`` (the DKG), ``wire`` (the canonical codec and the
-  message registry).
+  message registry);
+- ``sender_queue`` (the per-peer epoch-gated buffering every node stack
+  sits behind) and ``vid`` (verifiable information dispersal: the
+  dispersal, its certificates and ``VidQueueingHoneyBadger``; the
+  ``Disperser`` encodes on its ``device``).
 
 The array-mode drivers of ``parallel/`` use the committed types
 (``EncryptionSchedule``, the DHB votes and key-gen messages, ``DhbBatch``,
-``JoinPlan``, ``TransactionQueue``).  ``sender_queue`` and ``vid`` are not
-ported yet.  This package imports nothing itself.
+``JoinPlan``, ``TransactionQueue``).  This package imports nothing itself.
 """

@@ -6,8 +6,8 @@ tag-length-value codec): the ``Reader``, the framing helpers, node ids, the
 crypto objects that DKG and vote messages carry, ``batch_bytes`` (the
 ledger digest's canonical batch bytes) and the message registry
 (``encode_message`` / ``decode_message``) of every object-mode message:
-broadcast, binary agreement, threshold sign and decrypt, subset, HoneyBadger
-and DynamicHoneyBadger.  The sender-queue, VID, flight-recorder and
+broadcast, binary agreement, threshold sign and decrypt, subset, HoneyBadger,
+DynamicHoneyBadger, the sender queue and VID.  The flight-recorder and
 state-sync records are registered with their modules, which are not ported
 yet.
 
@@ -193,6 +193,7 @@ def batch_bytes(b) -> bytes:
     from hbbft_tpu_torch.protocols.dynamic_honey_badger import DhbBatch
     from hbbft_tpu_torch.protocols.honey_badger import Batch as HbBatch
     from hbbft_tpu_torch.protocols.queueing_honey_badger import QhbBatch
+    from hbbft_tpu_torch.protocols.vid import VidQhbBatch
 
     if isinstance(b, QhbBatch):
         out = b"qhb" + u64(b.era) + u64(b.epoch)
@@ -200,6 +201,14 @@ def batch_bytes(b) -> bytes:
             out += node_id(proposer) + u32(len(txs))
             for tx in txs:
                 out += blob(tx)
+        return out + _change_state_bytes(b.change)
+    if isinstance(b, VidQhbBatch):
+        # VID mode folds the ORDERED commitments, not the retrieved
+        # transactions: the digest chain stays a pure ordering artifact,
+        # so nodes at different retrieval depths still share a prefix
+        out = b"vqhb" + u64(b.era) + u64(b.epoch)
+        for proposer, payload in b.contributions:
+            out += node_id(proposer) + blob(payload)
         return out + _change_state_bytes(b.change)
     if isinstance(b, DhbBatch):
         out = b"dhb" + u64(b.era) + u64(b.epoch)
@@ -221,8 +230,8 @@ def batch_bytes(b) -> bytes:
 # The reference serializes EVERY message with serde/bincode; this is the
 # equivalent explicit codec: ``encode_message``/``decode_message`` cover the
 # complete message surface of the stack (RBC, ABA, threshold sign/decrypt,
-# subset and honey-badger wrappers, DHB era messages).  Deterministic and
-# self-delimiting.
+# subset and honey-badger wrappers, DHB era messages, sender-queue framing,
+# VID).  Deterministic and self-delimiting.
 
 _MSG_TAGS = {}
 _MSG_DECODERS = {}
@@ -306,6 +315,7 @@ def _lazy_register():
     from hbbft_tpu_torch.protocols.honey_badger import (
         DecryptionShareWrap, SubsetWrap,
     )
+    from hbbft_tpu_torch.protocols.sender_queue import AlgoMessage, EpochStarted
     from hbbft_tpu_torch.protocols.subset import AgreementWrap, BroadcastWrap
     from hbbft_tpu_torch.protocols.threshold_decrypt import DecryptionMessage
     from hbbft_tpu_torch.protocols.threshold_sign import ThresholdSignMessage
@@ -432,6 +442,56 @@ def _lazy_register():
     _register(0x61, KeyGenWrap,
               lambda m: u64(m.era) + enc_skg(m.msg),
               lambda r: KeyGenWrap(r.u64(), dec_skg(r)))
+    # sender queue ----------------------------------------------------------
+    _register(0x70, EpochStarted,
+              lambda m: u64(m.key[0]) + u64(m.key[1]),
+              lambda r: EpochStarted((r.u64(), r.u64())))
+    _register(0x71, AlgoMessage,
+              lambda m: encode_message(m.msg),
+              lambda r: AlgoMessage(_read_message(r)))
+    # verifiable information dispersal (protocols/vid.py) --------------------
+    from hbbft_tpu_torch.protocols.vid import (
+        VidCert, VidDisperse, VidRetrieve, VidShard, VidVote,
+    )
+
+    def rt32(r: Reader) -> bytes:
+        return r.take(32)
+
+    def enc_cert(m: VidCert) -> bytes:
+        out = (u64(m.era) + m.root + u64(m.total_len)
+               + u32(len(m.votes)))
+        for nid, sig in m.votes:
+            out += node_id(nid) + signature(sig)
+        return out
+
+    def dec_cert(r: Reader) -> VidCert:
+        era = r.u64()
+        root = rt32(r)
+        total_len = r.u64()
+        n = r.u32()
+        if n > 4096:
+            raise ValueError("absurd vote count")
+        votes = tuple(
+            (read_node_id(r), read_signature(r)) for _ in range(n)
+        )
+        return VidCert(era, root, total_len, votes)
+
+    _register(0xA0, VidDisperse,
+              lambda m: (u64(m.era) + m.root + u64(m.total_len)
+                         + proof_bytes(m.proof)),
+              lambda r: VidDisperse(r.u64(), rt32(r), r.u64(),
+                                    read_proof(r)))
+    _register(0xA1, VidVote,
+              lambda m: u64(m.era) + m.root + signature(m.sig),
+              lambda r: VidVote(r.u64(), rt32(r), read_signature(r)))
+    _register(0xA2, VidCert, enc_cert, dec_cert)
+    _register(0xA3, VidRetrieve,
+              lambda m: m.root,
+              lambda r: VidRetrieve(rt32(r)))
+    _register(0xA4, VidShard,
+              lambda m: (m.root + u64(m.total_len)
+                         + proof_bytes(m.proof)),
+              lambda r: VidShard(rt32(r), r.u64(), read_proof(r)))
 
 
 def ensure_registered():

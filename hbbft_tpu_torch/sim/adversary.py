@@ -4,11 +4,12 @@ An adversary controls the order in which queued messages are delivered and
 may tamper with or inject messages.  The BFT protocols must stay correct
 under *any* schedule, so tests run each suite under several of these.
 
-The port's copy of the first part of the JAX package's ``sim/adversary.py``:
-the base class, the schedulers (null, node order, reordering, MITM delay,
-random) and the equivocating proposer.  The zoo beyond them (targeted
-delay, censorship, eclipse, crash, flood and the socket-level adversaries)
-is not ported yet.
+The port's copy of the JAX package's ``sim/adversary.py``: the base class,
+the schedulers (null, node order, reordering, MITM delay, random), the
+equivocating proposer and the network-level zoo (targeted delay,
+censorship, eclipse, vote storms, flood, replay-as-spoof, future-epoch spam,
+crash at epoch).  The two socket-level adversaries (garbage streams and
+identity spoofing) wait for the port's ``net/``.
 """
 
 from __future__ import annotations
@@ -264,4 +265,355 @@ class RandomAdversary(Adversary):
                 return dataclasses.replace(msg, msg=self._mutate(msg.msg))
             except Exception:
                 return msg
+        return msg
+
+
+class TargetedDelayAdversary(Adversary):
+    """Targeted message-delay against a SET of victims.
+
+    The zoo generalization of :class:`MitmDelayAdversary`: while a seeded
+    hold budget lasts, any message to or from a victim is starved (other
+    traffic is delivered first); when the budget runs out the backlog
+    floods through at once, and the cycle repeats.  Exposes ordering /
+    staleness assumptions without dropping anything.
+    """
+
+    def __init__(self, targets, max_hold: Optional[int] = None,
+                 seed: int = 0):
+        self.targets = set(targets)
+        self.rng = random.Random(seed)
+        if max_hold is None:
+            max_hold = 40 + self.rng.randrange(0, 261)
+        self.max_hold = max_hold
+        self._held = 0
+
+    def pick_message(self, net: "VirtualNet") -> int:
+        others = [
+            i for i, m in enumerate(net.queue)
+            if m.to not in self.targets and m.sender not in self.targets
+        ]
+        if others and self._held < self.max_hold:
+            self._held += 1
+            return self.rng.choice(others)
+        self._held = 0
+        return self.rng.randrange(len(net.queue))
+
+
+class CensorshipAdversary(Adversary):
+    """Selective censorship by message type and/or peer.
+
+    Messages matching EVERY given criterion (type name anywhere in the
+    wrapper chain; sender in ``senders``; destination in ``dests``; a
+    ``None`` criterion matches anything) are removed from the network —
+    up to a seeded budget, so liveness pressure is real but bounded and
+    the protocol's recovery after the censor exhausts itself is part of
+    the scenario.  Censored drops are counted both here (``censored``)
+    and on the net (``adversary_filtered``).
+    """
+
+    def __init__(self, msg_types=(), senders=None, dests=None,
+                 budget: Optional[int] = None, seed: int = 0):
+        self.msg_types = frozenset(msg_types)
+        self.senders = None if senders is None else set(senders)
+        self.dests = None if dests is None else set(dests)
+        self.rng = random.Random(seed)
+        if budget is None:
+            budget = 50 + self.rng.randrange(0, 451)
+        self.budget = budget
+        self.censored = 0
+
+    def filter_message(self, net: "VirtualNet", msg: "NetworkMessage"):
+        if self.censored >= self.budget:
+            return msg
+        if self.senders is not None and msg.sender not in self.senders:
+            return msg
+        if self.dests is not None and msg.to not in self.dests:
+            return msg
+        if self.msg_types:
+            from hbbft_tpu_torch.sim.trace import msg_type_path
+
+            parts = set(msg_type_path(msg.payload).split("/"))
+            if not (parts & self.msg_types):
+                return msg
+        self.censored += 1
+        return None
+
+
+class EclipseAdversary(Adversary):
+    """Eclipse one CORRECT node: every message to or from the victim is
+    HELD (not dropped) until the heal, then the backlog is re-injected —
+    the victim is cut off while the rest of the cluster makes progress,
+    and must catch up from the flood afterwards.
+
+    The heal fires at ``heal_crank`` — or earlier, the moment the rest of
+    the network goes QUIESCENT (``net.quiescent``: nothing left in the
+    live queue or the shaper's held set — link-shaped traffic in flight
+    is not silence), so an eclipse can never deadlock a run whose only
+    remaining traffic is the held backlog.  Deterministic: no RNG at all.
+    """
+
+    def __init__(self, victim, heal_crank: int):
+        self.victim = victim
+        self.heal_crank = heal_crank
+        self.healed = False
+        self._held: List["NetworkMessage"] = []
+
+    def pending(self) -> int:
+        return len(self._held)
+
+    def filter_message(self, net: "VirtualNet", msg: "NetworkMessage"):
+        if not self.healed and (msg.to == self.victim
+                                or msg.sender == self.victim):
+            self._held.append(msg)
+            return None
+        return msg
+
+    def pre_crank(self, net: "VirtualNet") -> None:
+        if not self.healed and (net.cranks >= self.heal_crank
+                                or net.quiescent):
+            self.healed = True
+            net.queue.extend(self._held)
+            self._held.clear()
+
+
+class VoteStormAdversary(Adversary):
+    """Membership-vote storms: drives DynamicHoneyBadger era rotations
+    (and vote chaos) WHILE the link layer is doing its worst.
+
+    On a seeded schedule — a crank threshold, or the moment the network
+    goes quiescent, whichever comes first — every correct validator is
+    fed a :class:`~hbbft_tpu_torch.protocols.dynamic_honey_badger.ChangeInput`:
+
+    - **coordinated waves** alternate removing and re-adding a victim
+      validator, each winning vote starting a REAL SyncKeyGen DKG and
+      rotating the era — composed with ``partition-10s`` link shaping
+      this is a DKG rotation riding out a partition, ROADMAP item 4's
+      named next step;
+    - **split waves** (seeded coin) hand half the validators a remove
+      vote and half a keep vote: no majority, no rotation, just vote
+      traffic piggy-backing on every contribution until a later
+      coordinated wave supersedes it (``VoteCounter``'s later-vote-wins
+      pressure).
+
+    Deterministic per seed: the schedule depends only on crank counts,
+    quiescence, and the seeded RNG.  Injection counts are exposed
+    (``waves``, ``injected``) and rotations are visible to the auditor
+    as era changes in the committed batches — a clean cell must commit
+    across every boundary with all chains agreeing.
+    """
+
+    def __init__(self, seed: int = 0, first_crank: int = 300,
+                 min_gap: int = 600, max_waves: int = 4, victim=None):
+        self.rng = random.Random(seed)
+        self.min_gap = min_gap
+        self.max_waves = max_waves
+        self.victim = victim
+        self.waves = 0
+        self.injected = 0
+        self._next_at = first_crank
+        self._removed = False
+        self._victim_pk = None
+
+    def pre_crank(self, net: "VirtualNet") -> None:
+        if self.waves >= self.max_waves:
+            return
+        if net.cranks < self._next_at and not (net.quiescent
+                                               and net.cranks > 0):
+            return
+        from hbbft_tpu_torch.protocols.dynamic_honey_badger import (
+            Change, ChangeInput,
+        )
+
+        correct = net.correct_ids()
+        probe = net.nodes[correct[0]].algorithm
+        dhb = getattr(probe, "dhb", probe)
+        if dhb.change_state.state != "none":
+            # a DKG is already in flight — let it rotate before storming
+            # again (retry shortly; quiescence keeps the run alive)
+            self._next_at = net.cranks + 200
+            return
+        keys = dict(dhb.netinfo.public_key_map())
+        victim = self.victim if self.victim is not None else correct[-1]
+        self.waves += 1
+        self._next_at = net.cranks + self.min_gap
+        split = self.rng.random() < 0.34
+        if not self._removed:
+            if victim not in keys:
+                return  # victim vanished from the key map: nothing to do
+            self._victim_pk = keys[victim]
+            target = {k: v for k, v in keys.items() if k != victim}
+        else:
+            target = dict(keys)
+            target[victim] = self._victim_pk
+        change = Change.node_change(target)
+        if split:
+            keep = Change.node_change(keys)
+            for i, nid in enumerate(correct):
+                net.send_input(
+                    nid, ChangeInput(change if i % 2 == 0 else keep))
+                self.injected += 1
+            return
+        self._removed = not self._removed
+        for nid in correct:
+            net.send_input(nid, ChangeInput(change))
+            self.injected += 1
+
+
+class FloodAdversary(Adversary):
+    """Max-rate valid-frame spam from one peer (overload defense drill).
+
+    Every message the flooder emits is amplified ``copies``-fold, and
+    each crank the flooder re-injects duplicates of its own in-flight
+    traffic — all of it VALID protocol messages, the flood shape a
+    budget guard cannot reject on content.  Correct nodes must keep
+    committing with every per-peer buffer pinned under its cap: the
+    protocols treat duplicates as no-ops, the queues absorb the burst,
+    and nothing grows without bound.  The injection budget is seeded so
+    the run terminates and replays byte-identically.
+    """
+
+    def __init__(self, flooder, seed: int = 0, copies: int = 3,
+                 budget: Optional[int] = None):
+        self.flooder = flooder
+        self.rng = random.Random(seed)
+        self.copies = copies
+        if budget is None:
+            budget = 2_000 + self.rng.randrange(0, 2_001)
+        self.budget = budget
+        self.injected = 0
+
+    def filter_message(self, net: "VirtualNet", msg: "NetworkMessage"):
+        if msg.sender == self.flooder and self.injected < self.budget:
+            for _ in range(self.copies):
+                if self.injected >= self.budget:
+                    break
+                net.queue.append(msg)
+                self.injected += 1
+        return msg
+
+    def pre_crank(self, net: "VirtualNet") -> None:
+        if self.injected >= self.budget:
+            return
+        mine = [m for m in net.queue if m.sender == self.flooder]
+        if mine:
+            net.queue.append(self.rng.choice(mine))
+            self.injected += 1
+
+
+class SpoofReplayAdversary(FloodAdversary):
+    """Replay-as-spoof: the in-sim analog of identity spoofing.
+
+    Under the authenticated transport an attacker cannot FORGE a
+    validator's messages — the strongest impersonation left is
+    replaying byte-identical copies of messages the victim genuinely
+    sent.  Every crank this adversary re-injects seeded duplicates of
+    the victim's in-flight traffic (and amplifies fresh emissions
+    ``copies``-fold), exactly :class:`FloodAdversary`'s mechanics but
+    with an HONEST victim: the protocols treat duplicates as no-ops,
+    every node keeps committing, and the cell verdict must stay CLEAN —
+    the replayed victim did nothing wrong and must never be blamed for
+    traffic it sent once (``spec.faulty`` excludes it)."""
+
+    def __init__(self, victim, seed: int = 0, copies: int = 2,
+                 budget: Optional[int] = None):
+        super().__init__(victim, seed=seed, copies=copies, budget=budget)
+        self.victim = victim
+
+
+class FutureEpochSpamAdversary(Adversary):
+    """Window-edge protocol spam: the spammer injects binary-agreement
+    messages addressed to epochs at ``hb.epoch + max_future_epochs`` —
+    the farthest epoch a correct node must still accept — with ABA
+    epochs fanned across the ABA future window, forcing the receivers'
+    future-epoch buffers toward their caps.
+
+    Correct nodes must keep committing, every BA ``future`` buffer must
+    stay ≤ ``future_cap_per_sender`` (overflow front-evicts the
+    spammer's own entries, counted), and HoneyBadger's per-sender
+    future-epoch budget must absorb the rest.  Deterministic per seed.
+    """
+
+    def __init__(self, spammer, seed: int = 0, per_wave: int = 40,
+                 budget: Optional[int] = None):
+        self.spammer = spammer
+        self.rng = random.Random(seed)
+        self.per_wave = per_wave
+        if budget is None:
+            # sized so EACH victim's share of the stream exceeds the
+            # HoneyBadger per-sender future-epoch budget (the drill must
+            # actually make the defense engage, not just approach it)
+            budget = 6_000 + self.rng.randrange(0, 3_001)
+        self.budget = budget
+        self.injected = 0
+
+    def pre_crank(self, net: "VirtualNet") -> None:
+        if self.injected >= self.budget or not net.queue:
+            return
+        from hbbft_tpu_torch.protocols.binary_agreement import (
+            AuxMsg, BValMsg,
+        )
+        from hbbft_tpu_torch.protocols.dynamic_honey_badger import HbWrap
+        from hbbft_tpu_torch.protocols.honey_badger import SubsetWrap
+        from hbbft_tpu_torch.protocols.sender_queue import AlgoMessage
+        from hbbft_tpu_torch.protocols.subset import AgreementWrap
+        from hbbft_tpu_torch.sim.virtual_net import NetworkMessage
+
+        correct = net.correct_ids()
+        probe = net.nodes[correct[0]].algorithm
+        algo = getattr(probe, "algo", probe)          # unwrap SenderQueue
+        sender_queued = algo is not probe
+        dhb = getattr(algo, "dhb", algo)
+        hb = getattr(dhb, "hb", dhb)
+        era = getattr(dhb, "era", 0)
+        edge = hb.epoch + hb.max_future_epochs        # window edge
+        proposers = sorted(net.node_ids(), key=repr)
+        for _ in range(self.per_wave):
+            if self.injected >= self.budget:
+                return
+            proposer = proposers[self.rng.randrange(len(proposers))]
+            aba_epoch = self.rng.randrange(1, 17)     # BA future window
+            cls = BValMsg if self.rng.random() < 0.5 else AuxMsg
+            inner = cls(aba_epoch, bool(self.rng.randrange(2)))
+            payload = HbWrap(era, SubsetWrap(
+                edge, AgreementWrap(proposer, inner)))
+            if sender_queued:
+                payload = AlgoMessage(payload)
+            # the same spam hits EVERY correct node, so each receiver's
+            # per-sender budget sees the full stream
+            for victim in correct:
+                if self.injected >= self.budget:
+                    return
+                net.queue.append(
+                    NetworkMessage(self.spammer, victim, payload))
+                self.injected += 1
+
+
+class CrashAtEpochAdversary(Adversary):
+    """Crash-stop at epoch: once the victim node has produced
+    ``after_batches`` outputs (committed batches for a QHB stack), ALL
+    its subsequent traffic — both directions — is removed forever.  The
+    fail-stop shape consensus must tolerate for up to f nodes: the
+    remaining n−1 keep committing, the victim's ledger freezes at its
+    crash point (its journal simply ends — no fork, no fault).
+
+    Deterministic: the trigger is the victim's own output count.
+    Messages already in flight at the crash instant still deliver (the
+    usual fuzzy crash boundary).
+    """
+
+    def __init__(self, victim, after_batches: int = 1):
+        self.victim = victim
+        self.after_batches = after_batches
+        self.crashed = False
+        self.dropped = 0
+
+    def filter_message(self, net: "VirtualNet", msg: "NetworkMessage"):
+        if not self.crashed:
+            node = net.nodes.get(self.victim)
+            if node is not None and len(node.outputs) >= self.after_batches:
+                self.crashed = True
+        if self.crashed and (msg.sender == self.victim
+                             or msg.to == self.victim):
+            self.dropped += 1
+            return None
         return msg

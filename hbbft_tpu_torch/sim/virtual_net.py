@@ -12,15 +12,16 @@ can be driven by custom algorithms supplied via ``NetBuilder.faulty``.
 
 The port's copy of the JAX package's ``sim/virtual_net.py``.  The loop is
 host work; the protocol objects it drives carry their own ``device``.
-``NetBuilder.shape`` (link shaping, with ``VirtualNet``'s hook for it: the
-held set of future-dated messages) and ``NetBuilder.flight`` (the flight
-recorder) wait for the modules they need.
+``NetBuilder.shape`` attaches link shaping (:mod:`hbbft_tpu_torch.chaos.link`):
+shaped messages wait in a held set until the virtual clock reaches them.
+``NetBuilder.flight`` (the flight recorder) waits for ``obs/``.
 """
 
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
+from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 from hbbft_tpu_torch.fault_log import Fault, FaultLog
 from hbbft_tpu_torch.sim.adversary import Adversary, NullAdversary
@@ -38,6 +39,10 @@ class NetworkMessage:
     sender: NodeId
     to: NodeId
     payload: Any
+    #: earliest virtual delivery time (set by link shaping; 0 = now).
+    #: The cost model floors the receiver's clock here, so shaped
+    #: latency shows up in per-cell virtual latency numbers.
+    at: float = 0.0
 
 
 @dataclass
@@ -59,6 +64,7 @@ class VirtualNet:
         trace: Optional["EventLog"] = None,
         cost_model: Optional["CostModel"] = None,
         observers: Optional[Dict[NodeId, Any]] = None,
+        shaper: Optional[Any] = None,
     ):
         self.nodes = nodes
         self.queue: List[NetworkMessage] = []
@@ -69,6 +75,12 @@ class VirtualNet:
         self.cranks = 0
         self.trace = trace
         self.cost_model = cost_model
+        # the shared link-shaping hook (chaos.link.LinkShaper): shaped
+        # messages wait in _held until the virtual clock reaches their
+        # delivery time; [] from the shaper means the frame was dropped
+        self.shaper = shaper
+        self._held: List[Tuple[float, int, NetworkMessage]] = []
+        self._held_seq = 0
         # messages removed by the adversary's network-level gate
         # (filter_message returning None) — censorship/eclipse/crash
         self.adversary_filtered = 0
@@ -110,10 +122,17 @@ class VirtualNet:
         self._process_step(node, step)
 
     def crank(self) -> Optional[NetworkMessage]:
-        """Deliver exactly one message; None if the queue is empty."""
+        """Deliver exactly one message; None if nothing is deliverable
+        (both the live queue and the shaper's held set are empty)."""
         self.adversary.pre_crank(self)
+        self._release_due()
         if not self.queue:
-            return None
+            if not self._held:
+                return None
+            # every in-flight message is future-dated (a shaped lull):
+            # event-driven clock jump to the earliest delivery time
+            self.virtual_time = self._held[0][0]
+            self._release_due()
         self.cranks += 1
         if self.crank_limit is not None and self.cranks > self.crank_limit:
             raise CrankError(f"crank limit {self.crank_limit} exceeded")
@@ -132,7 +151,7 @@ class VirtualNet:
                 # the virtual delivery time is charged BEFORE the handler
                 # runs, so observers stamp events with the time they
                 # happened on the virtual clock
-                t_deliver = self.node_times.get(msg.to, 0.0) \
+                t_deliver = max(self.node_times.get(msg.to, 0.0), msg.at) \
                     + self.cost_model.charge(nbytes)
         obs = self.observers.get(msg.to)
         if obs is not None:
@@ -176,6 +195,13 @@ class VirtualNet:
             if n > max_cranks:
                 raise CrankError(f"predicate not reached in {max_cranks} cranks")
 
+    @property
+    def quiescent(self) -> bool:
+        """Nothing left to deliver: the live queue AND the shaper's
+        held set are both empty (time-triggered adversaries check this,
+        not ``queue`` alone — shaped traffic in flight is not silence)."""
+        return not self.queue and not self._held
+
     def run_to_quiescence(self) -> None:
         while self.crank() is not None:
             pass
@@ -188,6 +214,14 @@ class VirtualNet:
                 close()
 
     # -- internals ----------------------------------------------------------
+
+    def _release_due(self) -> None:
+        """Move shaped messages whose delivery time has arrived from the
+        held set into the live queue, in (ready, enqueue-seq) order."""
+        held = self._held
+        while held and held[0][0] <= self.virtual_time:
+            _ready, _seq, msg = heapq.heappop(held)
+            self.queue.append(msg)
 
     def _process_step(self, node: Node, step: Step) -> None:
         node.outputs.extend(step.output)
@@ -208,7 +242,32 @@ class VirtualNet:
                 if filtered is None:
                     self.adversary_filtered += 1
                     continue
-                self.queue.append(filtered)
+                self._enqueue(filtered)
+
+    def _enqueue(self, msg: NetworkMessage) -> None:
+        """The simulator side of the shared shaping hook: consult the
+        LinkShaper (if any) per directed edge; future-dated copies wait
+        in the held set until the virtual clock reaches them."""
+        if self.shaper is not None:
+            from hbbft_tpu_torch.sim.trace import wire_size
+
+            delays = self.shaper.shape_frame(
+                msg.sender, msg.to, self.virtual_time,
+                size_fn=lambda: wire_size(msg.payload))
+            if delays is not None:
+                for d in delays:
+                    if d <= 0:
+                        self.queue.append(msg)
+                    else:
+                        ready = self.virtual_time + d
+                        self._held_seq += 1
+                        heapq.heappush(
+                            self._held,
+                            (ready, self._held_seq,
+                             NetworkMessage(msg.sender, msg.to,
+                                            msg.payload, at=ready)))
+                return
+        self.queue.append(msg)
 
 
 class NetBuilder:
@@ -227,6 +286,7 @@ class NetBuilder:
         self._trace = None
         self._cost_model = None
         self._observer_factory: Optional[Callable[[NodeId], Any]] = None
+        self._shaper = None
 
     def faulty(self, ids: Sequence[NodeId]) -> "NetBuilder":
         self._faulty = set(ids)
@@ -259,6 +319,19 @@ class NetBuilder:
         self._cost_model = model
         return self
 
+    def shape(self, shape, seed: int = 0) -> "NetBuilder":
+        """Attach link shaping — the simulator side of the shared hook
+        (:mod:`hbbft_tpu_torch.chaos.link`).  ``shape`` is a ``NetShape`` (or a
+        prebuilt ``LinkShaper``); times are in VIRTUAL seconds, so pair
+        this with :meth:`cost_model` so the virtual clock advances (the
+        net still progresses without one — an all-held queue jumps the
+        clock to the next delivery — but latency numbers mean nothing)."""
+        from hbbft_tpu_torch.chaos.link import LinkShaper
+
+        self._shaper = (shape if isinstance(shape, LinkShaper)
+                        else LinkShaper(shape, seed=seed))
+        return self
+
     def observe(self, factory: Callable[[NodeId], Any]) -> "NetBuilder":
         """Attach one :class:`hbbft_tpu_torch.traits.StepObserver` per node —
         ``factory(node_id)`` builds it; the built observers are reachable
@@ -286,4 +359,5 @@ class NetBuilder:
                 {nid: self._observer_factory(nid) for nid in self.ids}
                 if self._observer_factory is not None else None
             ),
+            shaper=self._shaper,
         )

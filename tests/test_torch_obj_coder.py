@@ -128,3 +128,42 @@ def test_unknown_backend_and_reconstruct_errors(monkeypatch):
         coder.reconstruct_np([bytes(4)] * 3, device="cpu")
     with pytest.raises(ValueError, match="inconsistent"):
         coder.reconstruct_np([bytes(4), bytes(6), None, None], device="cpu")
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("n,f", SHAPES[:2])
+def test_verify_np_matches_reference(monkeypatch, backend, n, f):
+    """``verify_np``: True on a codeword, False once any shard's byte
+    flips, as the reference's."""
+    monkeypatch.setenv("HBBFT_ERASURE_BACKEND", "auto")
+    ref = jrs.for_n_f(n, f)
+    shards = ref.encode_np(_data(n - 2 * f, 96, seed=7 * n))
+    cases = [shards]
+    for row in (0, n - 1):
+        bad = shards.copy()
+        bad[row, 5] ^= 0x40
+        cases.append(bad)
+    want = [ref.verify_np(c) for c in cases]
+    assert want == [True, False, False]
+    monkeypatch.setenv("HBBFT_ERASURE_BACKEND", backend)
+    assert [rs.for_n_f(n, f).verify_np(c, device="cpu") for c in cases] == want
+
+
+def test_lru_len_and_contains_match_reference():
+    """The per-coder cache's ``len`` and ``in`` follow its evictions and
+    refreshes as the reference's do."""
+    ops = [("put", k) for k in range(5)] + [("get", 2), ("put", 9), ("get", 0), ("put", 7)]
+
+    def trace(lru_cls):
+        lru, out = lru_cls(maxsize=4), []
+        for op, k in ops:
+            if op == "put":
+                lru.put(k, ("v", k))
+            else:
+                lru.get(k)
+            out.append((len(lru), [j for j in range(10) if j in lru]))
+        return out
+
+    got = trace(rs._Lru)
+    assert got == trace(jrs._Lru)
+    assert got[-1] == (4, [2, 4, 7, 9])

@@ -4,7 +4,7 @@ For every message type the port registers, a sample built from the same
 seeded keys in both packages encodes to the same bytes, and those bytes
 decode in the port to an equal, equally hashing message (and in the
 reference to one that re-encodes to them).  The port registers exactly
-the reference's tags for the object-mode types; the sender-queue, VID,
+the reference's tags for the object-mode, sender-queue and VID types; the
 flight-recorder and state-sync types wait for their modules.  Committed
 batches give equal ``batch_bytes``, the live traffic of an N = 4
 HoneyBadger epoch round-trips, and malformed input is refused as in the
@@ -21,17 +21,18 @@ import pytest
 from test_torch_obj_protocols import PKGS, PORT, REF, infos, make_net
 
 # registered in the reference by modules the port has not yet
-NOT_PORTED = {"EpochStarted", "AlgoMessage", "FlightHello", "FlightMsg",
-              "FlightCommit", "FlightFault", "FlightSpan", "FlightNote",
-              "SyncManifestReq", "SyncManifest", "SyncChunkReq", "SyncChunk",
-              "SyncNack", "VidDisperse", "VidVote", "VidCert", "VidRetrieve",
-              "VidShard", "FlightTrace", "HealthIncident", "PerfSnapshot"}
+NOT_PORTED = {"FlightHello", "FlightMsg", "FlightCommit", "FlightFault",
+              "FlightSpan", "FlightNote", "SyncManifestReq", "SyncManifest",
+              "SyncChunkReq", "SyncChunk", "SyncNack", "FlightTrace",
+              "HealthIncident", "PerfSnapshot"}
 
 
 def samples(p):
     from importlib import import_module
 
     merkle = import_module(p.wire.__name__.replace("protocols.wire", "ops.merkle"))
+    sq = import_module(p.wire.__name__.replace("wire", "sender_queue"))
+    vid = import_module(p.wire.__name__.replace("wire", "vid"))
     rng = random.Random(77)
     sks = p.tc.SecretKeySet.random(1, rng)
     share = sks.secret_key_share(0).sign(b"doc")
@@ -61,6 +62,13 @@ def samples(p):
         hb.DecryptionShareWrap(4, 2, td.DecryptionMessage(dshare)),
         dhb.HbWrap(2, hb.SubsetWrap(0, ss.AgreementWrap(1, ba.TermMsg(True)))),
         dhb.KeyGenWrap(1, skg),
+        sq.EpochStarted((2, 17)),
+        sq.AlgoMessage(dhb.HbWrap(1, hb.SubsetWrap(3, ss.BroadcastWrap(2, bc.ReadyMsg(b"\x05" * 32))))),
+        vid.VidDisperse(3, tree.root_hash(), 1234, tree.proof(5)),
+        vid.VidVote(3, tree.root_hash(), sig),
+        vid.VidCert(3, tree.root_hash(), 1234, ((0, sig), ("node-b", sig))),
+        vid.VidRetrieve(tree.root_hash()),
+        vid.VidShard(tree.root_hash(), 1234, tree.proof(2)),
     ]
 
 

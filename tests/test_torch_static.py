@@ -22,6 +22,11 @@ OBJECT_MODE_FILES = [ROOT / "hbbft_tpu_torch" / rel for rel in (
     "protocols/threshold_decrypt.py", "protocols/honey_badger.py",
     "protocols/dynamic_honey_badger.py", "protocols/queueing_honey_badger.py",
     "protocols/wire.py")]
+# the node stack without the network: sender queue, VID, retrieval, join
+# snapshots, link shaping
+NODE_STACK_FILES = [ROOT / "hbbft_tpu_torch" / rel for rel in (
+    "protocols/sender_queue.py", "protocols/vid.py", "net/__init__.py",
+    "net/retrieve.py", "snapshot.py", "chaos/__init__.py", "chaos/link.py")]
 
 
 def _imported_roots(path):
@@ -49,6 +54,46 @@ def test_mesh_modules_are_held_to_the_import_rule(path):
                          ids=lambda p: str(p.relative_to(ROOT / "hbbft_tpu_torch")))
 def test_object_mode_modules_are_held_to_the_import_rule(path):
     assert path in PORT_FILES
+
+
+@pytest.mark.parametrize("path", NODE_STACK_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT / "hbbft_tpu_torch")))
+def test_node_stack_modules_are_held_to_the_import_rule(path):
+    assert path in PORT_FILES
+
+
+def test_node_stack_defaults_to_cuda_and_raises_without_it():
+    """VID's dispersal and retrieval, and the join-snapshot builders, default
+    to ``cuda`` and raise without a card; ``VidQueueingHoneyBadger`` hands
+    its DHB's device to its ``Disperser``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    import random
+
+    from hbbft_tpu_torch import snapshot
+    from hbbft_tpu_torch.net import RetrieveService, ShardStore
+    from hbbft_tpu_torch.netinfo import NetworkInfo
+    from hbbft_tpu_torch.protocols.dynamic_honey_badger import DynamicHoneyBadger
+    from hbbft_tpu_torch.protocols.sender_queue import SenderQueue
+    from hbbft_tpu_torch.protocols.vid import Disperser, VidQueueingHoneyBadger
+
+    nets = NetworkInfo.generate_map([0, 1, 2, 3], random.Random(1))
+    sk = nets[0].secret_key()
+    snap = snapshot.capture_join_snapshot(DynamicHoneyBadger(nets[0], sk, device="cpu"),
+                                          b"\x00" * 32, 0)
+    for make in (
+        lambda: Disperser(ShardStore()),
+        lambda: RetrieveService(0, ShardStore()),
+        lambda: snapshot.build_joiner(snap, 0, sk, config_netinfo=nets[0]),
+        lambda: VidQueueingHoneyBadger(DynamicHoneyBadger.builder(nets[0], sk).build()),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    stack = SenderQueue(VidQueueingHoneyBadger(
+        DynamicHoneyBadger.builder(nets[0], sk).device("cpu").build()))
+    assert stack.algo.disperser.device == torch.device("cpu")
+    joiner = snapshot.build_joiner(snap, 0, sk, config_netinfo=nets[0], device="cpu")
+    assert joiner.algo.dhb.hb.device == torch.device("cpu")
 
 
 def test_object_mode_builders_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -186,10 +231,13 @@ def test_protocols_package_loads_neither_jax_nor_the_jax_package():
         "import hbbft_tpu_torch.parallel.dhb, hbbft_tpu_torch.parallel.qhb\n"
         "import hbbft_tpu_torch.simulation, hbbft_tpu_torch.sim, hbbft_tpu_torch.traits\n"
         "import hbbft_tpu_torch.protocols.wire as w; w.ensure_registered()\n"
+        "import hbbft_tpu_torch.protocols.vid, hbbft_tpu_torch.protocols.sender_queue\n"
+        "import hbbft_tpu_torch.net, hbbft_tpu_torch.snapshot, hbbft_tpu_torch.chaos\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'hbbft_tpu'))\n"
         "assert 'hbbft_tpu_torch.protocols.sync_key_gen' in new\n"
         "assert 'hbbft_tpu_torch.protocols.broadcast' in new\n"
+        "assert 'hbbft_tpu_torch.net.retrieve' in new and 'hbbft_tpu_torch.chaos.link' in new\n"
         "print(bad)\n"
     )
     env = {**os.environ,
