@@ -8,6 +8,7 @@ on one NVIDIA card.
     python3 chip_smoke.py --phases epoch4096,sustained4096   # BASELINE config 5
     python3 chip_smoke.py --phases objsim   # object mode: the simulation CLI
     python3 chip_smoke.py --phases vidsim   # the node stack on VirtualNet at N = 22
+    python3 chip_smoke.py --phases netsim   # the node runtime over localhost TCP at N = 22
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -149,7 +150,26 @@ Phases, one JSON line each; any failure exits non-zero:
     ``ladder_window`` launch a share-set fold and no other launch, every
     erasure product on the device; crank-loop seconds, cranks, messages,
     virtual time, the shaper's counters, VID's counters and a host split.
-21. ``kernels``: every kernel with its launches, errors and times; then the
+21. ``netsim``: the node runtime over real sockets at N = 22, f = 7: an
+    in-process ``LocalCluster`` (``ClusterConfig(device="cuda")``, 22
+    ``NodeRuntime``s, each with its own pump thread, over localhost TCP on
+    ephemeral ports), ``encrypt=True``, batches of 64, the flight recorder
+    on, the device erasure backend; 250-byte transactions, each distinct,
+    submitted through a ``ClusterClient`` connected to its own node.  (a)
+    the classic stack at pipeline depth 2, 128 transactions a node; (b) the
+    VID stack, 64 a node, whose payloads the runtimes' ``RetrieveService``s
+    fetch.  Gates: every transaction committed exactly once on every node,
+    one ledger-digest chain on all 22 as long as the epochs run, every
+    node's ``/status`` with 0 decode failures and 21 peers connected,
+    flight records written and none failed, two device folds and no host
+    fold for each share-set job the pumps hand ``verify_dec_share_sets``
+    (on the cluster's device), ``ladder_window`` launches = 2 × those jobs
+    and no other launch, every erasure product on the device, in (b) 0
+    retrieval mismatches and failures, and ``LocalCluster.stop()`` within
+    10 s.  Wall time to the last commit, tx/s, client latency p50/p99, the
+    pumps' segment seconds, merged calls and jobs a call, ms a fold,
+    erasure bytes/s.
+22. ``kernels``: every kernel with its launches, errors and times; then the
     whole run's seconds.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
@@ -163,6 +183,7 @@ package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import hashlib
 import json
@@ -2815,6 +2836,283 @@ def phase_vidsim(ctx):
     return out
 
 
+# netsim: the node runtime over real sockets.  An in-process LocalCluster
+# of N = 22 (f = 7) NodeRuntimes on this process's event loop, each with its
+# own StepPump worker thread, over localhost TCP on ephemeral ports: the
+# deployment the reference's examples/cluster.py runs, at objsim's and
+# vidsim's N.  encrypt=True, batches of 64, 250-byte transactions (the
+# HoneyBadgerBFT paper's size), each distinct and submitted through a
+# ClusterClient connected to its own node; the flight recorder on; the
+# device erasure backend.  (a) the classic stack, pipeline depth 2, 128
+# transactions a node; (b) the VID stack, 64 a node, whose payloads the
+# runtimes' own RetrieveServices fetch.  Every share-set check goes through
+# the pump's deferred seam: verify_dec_share_sets, two rlc_fold_g1 a job,
+# each a ladder_window launch at t + 1 = 8 rows.
+NETSIM_N = 22
+NETSIM_BATCH = 64
+NETSIM_TX_BYTES = 250
+# the mempool's per-transaction ceiling: 64 of them must fit half a wire blob
+NETSIM_MAX_TX_BYTES = 4096
+NETSIM_STACKS = (("classic", False, 128, 2), ("vid", True, 64, 1))  # name, vid, txs a node, depth
+NETSIM_DEVICE = "cuda"
+NETSIM_BUDGET_S = 400.0  # one stack, start to stop
+NETSIM_STOP_S = 10.0
+NETSIM_SEGMENTS = ("msg", "deferred", "flush", "recv")
+# One interpreter hosts all 22 pump threads and the event loop that serves
+# every node's sockets, so the loop waits behind the pumps for the
+# interpreter lock on every syscall and stalls for seconds under load
+# (``loop_lag_s`` in the phase's record).  At the defaults (pings every
+# 0.5 s, dead after 3 s) the pings alone keep it busy and stalled links are
+# declared dead and re-handshaken; a deployment runs a process a node.
+# Slower pings and a longer dead window keep the links up here.
+NETSIM_HEARTBEAT_S = 5.0
+NETSIM_DEAD_AFTER_S = 30.0
+
+
+def _netsim_txs(name: str, nid: int, count: int):
+    rng = random.Random(hashlib.sha3_256(b"netsim-%s-%d" % (name.encode(), nid)).digest())
+    out = []
+    for i in range(count):
+        head = b"%s-%02d-%03d-" % (name.encode(), nid, i)
+        out.append(head + rng.randbytes(NETSIM_TX_BYTES - len(head)))
+    return out
+
+
+@contextlib.contextmanager
+def _netsim_spies(B, rs):
+    """Thread-safe counts of the runtimes' device seams while the block
+    runs (22 pump threads call them at once): ``verify_dec_share_sets``
+    calls, their jobs and devices; ``rlc_fold_g1`` by route; share
+    generation by route; the erasure products and their host-timed
+    seconds (copies and thread waits included)."""
+    lock = threading.Lock()
+    rec = {"verify_calls": 0, "jobs": 0, "jobs_per_call_max": 0, "verify_s": 0.0,
+           "devices": set(), "folds": 0, "host_folds": 0, "fold_s": 0.0,
+           "share_gens": 0, "host_share_gens": 0, "products": 0, "product_s": 0.0}
+    verify, fold, gen = B.verify_dec_share_sets, B.rlc_fold_g1, B.batch_decrypt_share_gen
+    apply = rs.ReedSolomon._apply_matrix
+
+    def spy_verify(jobs, device="cuda"):
+        t = time.perf_counter()
+        out = verify(jobs, device=device)
+        dt = time.perf_counter() - t
+        with lock:
+            rec["verify_calls"] += 1
+            rec["jobs"] += len(jobs)
+            rec["jobs_per_call_max"] = max(rec["jobs_per_call_max"], len(jobs))
+            rec["verify_s"] += dt
+            rec["devices"].add(str(device))
+        return out
+
+    def spy_fold(points, scalars, device="cuda"):
+        on_device = B._device_worthwhile(len(points), B.DEVICE_FOLD_MIN_BATCH)
+        t = time.perf_counter()
+        out = fold(points, scalars, device=device)
+        dt = time.perf_counter() - t
+        with lock:
+            rec["folds" if on_device else "host_folds"] += 1
+            rec["fold_s"] += dt
+        return out
+
+    def spy_gen(scalar, cts, device="cuda"):
+        on_device = B._device_worthwhile(len(cts), B.DEVICE_SHARE_GEN_MIN_BATCH)
+        out = gen(scalar, cts, device=device)
+        with lock:
+            rec["share_gens" if on_device and cts else "host_share_gens"] += 1
+        return out
+
+    def spy_apply(self, *args, **kw):
+        t = time.perf_counter()
+        out = apply(self, *args, **kw)
+        dt = time.perf_counter() - t
+        with lock:
+            rec["products"] += 1
+            rec["product_s"] += dt
+        return out
+
+    B.verify_dec_share_sets, B.rlc_fold_g1, B.batch_decrypt_share_gen = (
+        spy_verify, spy_fold, spy_gen)
+    rs.ReedSolomon._apply_matrix = spy_apply
+    try:
+        yield rec
+    finally:
+        B.verify_dec_share_sets, B.rlc_fold_g1, B.batch_decrypt_share_gen = verify, fold, gen
+        rs.ReedSolomon._apply_matrix = apply
+
+
+async def _netsim_settle(cluster, vid: bool, timeout_s: float) -> None:
+    """Until every runtime holds the same number of batches and, in VID
+    mode, no retrieval is pending."""
+    async def settled():
+        while True:
+            counts = {len(rt.batches) for rt in cluster.runtimes}
+            pending = sum(rt._retrieve.pending_count() for rt in cluster.runtimes) if vid else 0
+            if len(counts) == 1 and not pending:
+                return
+            await asyncio.sleep(0.05)
+
+    await asyncio.wait_for(settled(), timeout_s)
+
+
+async def _netsim_stack(name: str, vid: bool, per_node: int, depth: int, flight_root: str):
+    """One LocalCluster from start to stop: submit every node's transactions
+    through its own client, wait for every commit, settle, read every node's
+    /status, check the gates, stop.  Returns the stack's record."""
+    from hbbft_tpu_torch.net import ClusterConfig, LocalCluster, framing
+    from hbbft_tpu_torch.net.client import latency_percentiles
+    from hbbft_tpu_torch.obs.http import http_get
+
+    n = NETSIM_N
+    cfg = ClusterConfig(n=n, encrypt=True, vid=vid, batch_size=NETSIM_BATCH,
+                        max_tx_bytes=NETSIM_MAX_TX_BYTES, pipeline_depth=depth,
+                        flight_dir=flight_root, device=NETSIM_DEVICE,
+                        heartbeat_s=NETSIM_HEARTBEAT_S, dead_after_s=NETSIM_DEAD_AFTER_S)
+    txs = {i: _netsim_txs(name, i, per_node) for i in range(n)}
+    what = f"netsim ({name})"
+    cluster = LocalCluster(cfg)
+    rec = {"stack": name, "vid": vid, "pipeline_depth": depth, "txs_per_node": per_node,
+           "txs": n * per_node}
+    lags = []
+
+    async def loop_lag():  # how late a 50 ms sleep wakes: the loop's stalls
+        while True:
+            t = time.perf_counter()
+            await asyncio.sleep(0.05)
+            lags.append(time.perf_counter() - t - 0.05)
+
+    lag_task = asyncio.ensure_future(loop_lag())
+    t_start = time.perf_counter()
+    try:
+        await cluster.start()
+        rec["start_s"] = time.perf_counter() - t_start
+        clients = [await cluster.client(i, client_id=f"netsim-{i}") for i in range(n)]
+        t0 = time.perf_counter()
+        acks = await asyncio.gather(*(c.submit_many(txs[i], ack_timeout_s=NETSIM_BUDGET_S)
+                                      for i, c in enumerate(clients)))
+        if any(a != framing.ACK_ACCEPTED for ack in acks for a in ack):
+            raise AssertionError(f"{what}: a submission was not accepted: "
+                                 f"{sorted({a for ack in acks for a in ack})}")
+        rec["submit_s"] = time.perf_counter() - t0
+        await asyncio.gather(*(c.wait_committed_many(txs[i], timeout_s=NETSIM_BUDGET_S)
+                               for i, c in enumerate(clients)))
+        wall = time.perf_counter() - t0
+        await _netsim_settle(cluster, vid, 60.0)
+        docs = []
+        for i in range(n):
+            host, port = cluster.metrics_addrs[i]
+            docs.append(json.loads(await asyncio.to_thread(http_get, host, port, "/status")))
+        prefix = cluster.common_digest_prefix()
+        epochs = len(cluster.runtimes[0].batches)
+        lat = latency_percentiles(lat for c in clients for _d, lat in c.latencies)
+        seg = {k: sum(rt._pump_seg[k].sum for rt in cluster.runtimes) for k in NETSIM_SEGMENTS}
+        rec.update({
+            "wall_to_last_commit_s": wall, "epochs": epochs, "tx_per_s": n * per_node / wall,
+            "latency": lat, "digest_prefix_len": len(prefix),
+            "pump_segment_s": seg,
+            "pump_iterations": sum(rt.pump.iterations for rt in cluster.runtimes),
+            "pump_offloaded": sum(rt.pump.offloaded for rt in cluster.runtimes),
+            "loop_lag_s": {"p50": statistics.median(lags), "max": max(lags),
+                           "samples": len(lags)},
+            "dead_peer_events": sum(d["stats"]["dead_peer_events"] for d in docs),
+            "status": {k: sorted({d[k] for d in docs}) for k in
+                       ("committed_txs", "decode_failures", "peers_connected", "batches")},
+            "flight": {"records": sum(d["flight"]["records"] for d in docs),
+                       "records_min": min(d["flight"]["records"] for d in docs),
+                       "bytes": sum(d["flight"]["bytes"] for d in docs),
+                       "write_failures": sum(d["flight"]["write_failures"] for d in docs)},
+        })
+        if vid:
+            rec["vid_status"] = {k: sum(d["vid"][k] for d in docs) for k in
+                                 ("disperse", "cert", "retrieve", "retrieved", "mismatch",
+                                  "failure", "retry", "shard_served", "pending_retrievals")}
+        # the gates
+        if len(prefix) < epochs or any(len(rt.batches) != epochs for rt in cluster.runtimes):
+            raise AssertionError(f"{what}: common digest prefix {len(prefix)} of {epochs} "
+                                 "epochs")
+        if rec["status"]["committed_txs"] != [n * per_node]:
+            raise AssertionError(f"{what}: committed_txs by node {rec['status']['committed_txs']}"
+                                 f", want {n * per_node} on every node (each once)")
+        if rec["status"]["decode_failures"] != [0] or rec["status"]["peers_connected"] != [n - 1]:
+            bad = {i: (d["stats"]["dead_peer_events"], d["stats"]["reconnects"])
+                   for i, d in enumerate(docs) if d["peers_connected"] != n - 1}
+            raise AssertionError(f"{what}: status {rec['status']}; nodes short of peers "
+                                 f"(dead-peer events, reconnects): {bad}")
+        if rec["flight"]["records_min"] <= 0 or rec["flight"]["write_failures"]:
+            raise AssertionError(f"{what}: flight {rec['flight']}")
+        if vid:
+            v = rec["vid_status"]
+            want = 0
+            for b in cluster.runtimes[0].batches:
+                want += sum(1 for _p, _c in b.commitments())
+            if v["mismatch"] or v["failure"] or v["pending_retrievals"] \
+                    or v["retrieved"] != want * (n - 1):
+                raise AssertionError(f"{what}: retrieval {v}, want {want * (n - 1)} "
+                                     "retrieved, no mismatch or failure")
+    finally:
+        lag_task.cancel()
+        t_stop = time.perf_counter()
+        await asyncio.wait_for(cluster.stop(), NETSIM_STOP_S * 3)
+        rec["stop_s"] = time.perf_counter() - t_stop
+    if rec["stop_s"] > NETSIM_STOP_S:
+        raise AssertionError(f"{what}: LocalCluster.stop() took {rec['stop_s']:.1f} s")
+    rec["run_s"] = time.perf_counter() - t_start
+    return rec
+
+
+def phase_netsim(ctx):
+    """The node runtime over real sockets at N = 22 on the card: (a) the
+    classic stack at pipeline depth 2, (b) the VID stack; every gate of
+    ``_netsim_stack``, one ``ladder_window`` launch a device fold, two
+    folds a merged share-set job, every erasure product on the device."""
+    import tempfile
+
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.ops import rs
+
+    out = {"smi": ctx["smi"], "n": NETSIM_N, "batch_size": NETSIM_BATCH,
+           "tx_bytes": NETSIM_TX_BYTES, "device": NETSIM_DEVICE}
+    launches = {}
+    for name, vid, per_node, depth in NETSIM_STACKS:
+        what = f"netsim ({name})"
+        with tempfile.TemporaryDirectory() as root, _erasure_backend("device"), \
+                _netsim_spies(B, rs) as spy:
+            stats0 = rs.stats_snapshot()
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            rec = asyncio.run(asyncio.wait_for(
+                _netsim_stack(name, vid, per_node, depth, root), NETSIM_BUDGET_S))
+            torch.cuda.synchronize()
+            got = dict(_build.LAUNCHES)
+            stats1 = rs.stats_snapshot()
+        er = {b: {k: stats1[b][k] - stats0[b][k] for k in stats1[b]} for b in stats1}
+        spy["devices"] = sorted(spy["devices"])
+        expected = 2 * spy["jobs"] + spy["share_gens"]
+        if spy["jobs"] == 0 or spy["host_folds"] or spy["folds"] != 2 * spy["jobs"] \
+                or got.get("ladder_window") != expected \
+                or any(v for k, v in got.items() if k != "ladder_window") \
+                or spy["devices"] != [NETSIM_DEVICE]:
+            raise AssertionError(f"{what}: launches {got}, seams {spy}: want ladder_window = "
+                                 f"2 x jobs (+ device share generations) and no host fold")
+        if er["native"]["calls"] or er["numpy"]["calls"] or not er["device"]["calls"]:
+            raise AssertionError(f"{what}: erasure products {er}")
+        rec.update({
+            "launches": got, "seams": spy, "erasure": er,
+            "jobs_per_verify_call": spy["jobs"] / spy["verify_calls"],
+            "ms_per_fold": 1e3 * spy["fold_s"] / spy["folds"],
+            "erasure_device_bytes_per_s": er["device"]["bytes"] / spy["product_s"]
+            if spy["product_s"] else None,
+        })
+        out[name] = rec
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    ctx["netsim_launches"] = launches
+    ctx["netsim_folds"] = out["classic"]["seams"]["folds"] + out["vid"]["seams"]["folds"]
+    return out
+
+
 def _mesh_epoch64(torch, mesh, nets, contribs):
     """The N = 64 epoch sharded over ``mesh`` and unsharded, on the same
     inputs: (sharded seconds by phase, unsharded ones, launches of the
@@ -3019,6 +3317,7 @@ def phase_kernels(ctx):
                       "shape": "none: it runs inside the ladder kernel"},
             "objsim22": {"launches": ctx["objsim_launches"]["fp_mul_lazy"]},
             "vidsim22": {"launches": ctx["vidsim_launches"]["fp_mul_lazy"]},
+            "netsim22": {"launches": ctx["netsim_launches"]["fp_mul_lazy"]},
         },
         {
             "name": "sha3_256", "route": "cuda",
@@ -3046,6 +3345,8 @@ def phase_kernels(ctx):
                          "run": "object mode hashes its Merkle trees on the host"},
             "vidsim22": {"launches": ctx["vidsim_launches"]["sha3_256"],
                          "run": "object mode hashes its Merkle trees on the host"},
+            "netsim22": {"launches": ctx["netsim_launches"]["sha3_256"],
+                         "run": "the node runtime hashes its Merkle trees on the host"},
         },
         {
             "name": "ladder_lazy", "route": "cuda",
@@ -3069,6 +3370,7 @@ def phase_kernels(ctx):
             "n4096": {"launches": launches_x["ladder_lazy"]},
             "objsim22": {"launches": ctx["objsim_launches"]["ladder_lazy"]},
             "vidsim22": {"launches": ctx["vidsim_launches"]["ladder_lazy"]},
+            "netsim22": {"launches": ctx["netsim_launches"]["ladder_lazy"]},
         },
         {
             "name": "ladder_window", "route": "cuda",
@@ -3103,6 +3405,10 @@ def phase_kernels(ctx):
                          "device_folds": ctx["vidsim_folds"],
                          "run": "the VID and the classic node stack at N = 22, one epoch "
                                 "each: one launch a share-set fold"},
+            "netsim22": {"launches": ctx["netsim_launches"]["ladder_window"],
+                         "device_folds": ctx["netsim_folds"],
+                         "run": "the classic and the VID node runtime over localhost TCP at "
+                                "N = 22: two launches a merged share-set job"},
         },
     ]
     return {"kernels": kernels}
@@ -3171,7 +3477,7 @@ def main() -> int:
               ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
               ("epoch4096", phase_epoch4096), ("sustained4096", phase_sustained4096),
               ("mesh", phase_mesh), ("coin256", phase_coin256), ("dkg256", phase_dkg256), ("dhb", phase_dhb),
-              ("objsim", phase_objsim), ("vidsim", phase_vidsim)]
+              ("objsim", phase_objsim), ("vidsim", phase_vidsim), ("netsim", phase_netsim)]
     only, ctx["dhb_n"] = _parse_args(sys.argv[1:], [n for n, _ in phases])
     ok = True
     for name, fn in phases:

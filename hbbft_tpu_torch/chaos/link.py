@@ -28,10 +28,10 @@ in real seconds; :meth:`NetShape.scaled` rescales a whole shape for the
 simulator's much faster virtual clock (the campaign uses ``1e-3``).
 
 The port's copy of the JAX package's module.  Its decisions are the
-reference's, edge by edge, for the same seed.  The ``hbbft_chaos_*``
-counters are plain ints in :attr:`LinkShaper.counters` under the
-reference's metric names until the port has a metrics registry; the
-socket transport's side of the hook is not ported yet.
+reference's, edge by edge, for the same seed, and its ``hbbft_chaos_*``
+counters carry the reference's names on an
+:mod:`hbbft_tpu_torch.obs.metrics` registry (``bind_registry`` re-homes
+them onto a node's); :attr:`LinkShaper.counters` reads them by name.
 """
 
 from __future__ import annotations
@@ -240,17 +240,6 @@ PRESETS: Tuple[str, ...] = ("none", "wan-100ms", "lossy-1pct",
 # The shared shaping hook
 # ===========================================================================
 
-#: the shaper's counters: frames that passed a policy, frames dropped (loss
-#: or drop-mode partitions), frames delivered late, extra copies injected,
-#: frames held across a partition window until its heal
-COUNTERS: Tuple[str, ...] = (
-    "hbbft_chaos_frames_shaped_total",
-    "hbbft_chaos_frames_dropped_total",
-    "hbbft_chaos_frames_delayed_total",
-    "hbbft_chaos_frames_duplicated_total",
-    "hbbft_chaos_partition_holds_total",
-)
-
 
 class LinkShaper:
     """Seeded per-edge shaping decisions + accounting for ONE driver.
@@ -264,16 +253,48 @@ class LinkShaper:
     its streams, so one edge's draw count never perturbs another's.
     """
 
-    def __init__(self, shape: NetShape, seed: int = 0):
+    def __init__(self, shape: NetShape, seed: int = 0, registry=None):
         self.shape = shape
         self.seed = seed
         self._rngs: Dict[Edge, random.Random] = {}
         self._state: Dict[Edge, Dict[str, Any]] = {}
-        #: the shaping tallies, by the reference's metric names
-        self.counters: Dict[str, int] = {name: 0 for name in COUNTERS}
+        self._bind_metrics(registry)
 
-    def _inc(self, name: str, k: int = 1) -> None:
-        self.counters[name] += k
+    def _bind_metrics(self, registry) -> None:
+        if registry is None:
+            from hbbft_tpu_torch.obs.metrics import Registry
+
+            registry = Registry()
+        self.registry = registry
+        r = registry
+        self._c_shaped = r.counter(
+            "hbbft_chaos_frames_shaped_total",
+            "frames that passed through a link-shaping policy")
+        self._c_dropped = r.counter(
+            "hbbft_chaos_frames_dropped_total",
+            "frames dropped by link shaping (loss or drop-mode "
+            "partitions)")
+        self._c_delayed = r.counter(
+            "hbbft_chaos_frames_delayed_total",
+            "frames delivered late by link shaping")
+        self._c_dup = r.counter(
+            "hbbft_chaos_frames_duplicated_total",
+            "extra frame copies injected by link shaping")
+        self._c_partition = r.counter(
+            "hbbft_chaos_partition_holds_total",
+            "frames held across a partition window until its heal")
+
+    @property
+    def counters(self) -> Dict[str, int]:
+        """The shaping tallies by their metric names."""
+        return {c.name: int(c.value()) for c in (
+            self._c_shaped, self._c_dropped, self._c_delayed, self._c_dup,
+            self._c_partition)}
+
+    def bind_registry(self, registry) -> None:
+        """Re-home the counters onto a node's registry (the transport
+        calls this so shaping shows on that node's ``/metrics``)."""
+        self._bind_metrics(registry)
 
     # -- decisions -----------------------------------------------------------
 
@@ -324,26 +345,25 @@ class LinkShaper:
         holds_before = state.get("partition_holds", 0)
         deliver, delays = policy.decide(now, nbytes,
                                         self.rng_for(src, dst), state)
-        self._inc("hbbft_chaos_frames_shaped_total")
+        self._c_shaped.inc()
         if not deliver:
-            self._inc("hbbft_chaos_frames_dropped_total")
+            self._c_dropped.inc()
             return []
         if state.get("partition_holds", 0) > holds_before:
-            self._inc("hbbft_chaos_partition_holds_total")
+            self._c_partition.inc()
         if any(d > 0 for d in delays):
-            self._inc("hbbft_chaos_frames_delayed_total")
+            self._c_delayed.inc()
         if len(delays) > 1:
-            self._inc("hbbft_chaos_frames_duplicated_total", len(delays) - 1)
+            self._c_dup.inc(len(delays) - 1)
         return delays
 
     # -- introspection -------------------------------------------------------
 
     def stats(self) -> Dict[str, int]:
-        c = self.counters
         return {
-            "shaped": c["hbbft_chaos_frames_shaped_total"],
-            "dropped": c["hbbft_chaos_frames_dropped_total"],
-            "delayed": c["hbbft_chaos_frames_delayed_total"],
-            "duplicated": c["hbbft_chaos_frames_duplicated_total"],
-            "partition_holds": c["hbbft_chaos_partition_holds_total"],
+            "shaped": int(self._c_shaped.value()),
+            "dropped": int(self._c_dropped.value()),
+            "delayed": int(self._c_delayed.value()),
+            "duplicated": int(self._c_dup.value()),
+            "partition_holds": int(self._c_partition.value()),
         }

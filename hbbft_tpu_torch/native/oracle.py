@@ -7,6 +7,7 @@ import ctypes
 import fcntl
 import os
 import subprocess
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -15,6 +16,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _LIB = os.path.join(_DIR, "libhbbft_native.so")
 
 _oracle: Optional["NativeOracle"] = None
+_oracle_lock = threading.Lock()
 
 
 def _stale() -> bool:
@@ -475,8 +477,11 @@ class NativeOracle:
 
 
 def get_oracle() -> NativeOracle:
-    """Build (if needed) and return the singleton oracle."""
+    """Build (if needed) and return the singleton oracle (once, whichever
+    thread asks first)."""
     global _oracle
     if _oracle is None:
-        _oracle = NativeOracle()
+        with _oracle_lock:
+            if _oracle is None:
+                _oracle = NativeOracle()
     return _oracle

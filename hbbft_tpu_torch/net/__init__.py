@@ -1,16 +1,62 @@
-"""The node stack's network-side services.
+"""Real async networking for the sans-I/O consensus stack.
 
-The port's counterpart of the JAX package's ``net/``, of which only
-``retrieve`` (VID's fetch-and-reconstruct service and its shard store) is
-ported so far.  The reference's package also holds the socket transport
-and the node runtime, and its ``__init__`` imports them; this one exports
-only what is ported.
+The port's copy of the JAX package's ``net/``.  Layering (bottom up):
+
+- :mod:`~hbbft_tpu_torch.net.framing` — length-prefixed, size-capped frames
+  over the :mod:`hbbft_tpu_torch.protocols.wire` codec, with a versioned
+  hello;
+- :mod:`~hbbft_tpu_torch.net.transport` — asyncio TCP peer connections:
+  per-peer persistent outbound queues, seeded deterministic exponential
+  backoff, heartbeats and dead-peer detection;
+- :mod:`~hbbft_tpu_torch.net.runtime` — :class:`NodeRuntime` hosts any
+  ``SenderQueue``-wrappable :class:`~hbbft_tpu_torch.traits.ConsensusProtocol`
+  behind sockets, resolving ``Target`` routing and driving the
+  ``EpochStarted`` catch-up path for lagging/restarted peers; its pump
+  hands every threshold-decrypt share set in flight to
+  ``crypto/batch.py``'s ``verify_dec_share_sets`` on the node's ``device``;
+- :mod:`~hbbft_tpu_torch.net.retrieve` — VID's fetch-and-reconstruct
+  service and its shard store;
+- :mod:`~hbbft_tpu_torch.net.client` — bounded dedup'd mempool (node side)
+  and the :class:`ClusterClient` contribute frontend with backpressure and
+  submit→commit latency tracking;
+- :mod:`~hbbft_tpu_torch.net.cluster` — cluster assembly: in-process
+  :class:`LocalCluster` and per-node subprocess entry
+  (``python -m hbbft_tpu_torch.net.cluster``), with a ``device`` (default
+  ``"cuda"``, raising without a card).
+
+The reference's ``gateway`` and ``loadgen`` are not ported yet.
 """
 
+from hbbft_tpu_torch.net.client import ClusterClient, Mempool
+from hbbft_tpu_torch.net.cluster import ClusterConfig, LocalCluster
+from hbbft_tpu_torch.net.framing import (
+    FrameDecoder,
+    FrameError,
+    Hello,
+    PROTOCOL_VERSION,
+)
 from hbbft_tpu_torch.net.retrieve import (
     RetrievedPayload,
     RetrieveService,
     ShardStore,
 )
+from hbbft_tpu_torch.net.runtime import NodeRuntime
+from hbbft_tpu_torch.net.transport import BackoffPolicy, Transport, TransportStats
 
-__all__ = ["RetrievedPayload", "RetrieveService", "ShardStore"]
+__all__ = [
+    "BackoffPolicy",
+    "ClusterClient",
+    "ClusterConfig",
+    "FrameDecoder",
+    "FrameError",
+    "Hello",
+    "LocalCluster",
+    "Mempool",
+    "NodeRuntime",
+    "PROTOCOL_VERSION",
+    "RetrievedPayload",
+    "RetrieveService",
+    "ShardStore",
+    "Transport",
+    "TransportStats",
+]

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,13 +48,16 @@ from hbbft_tpu_torch.ops import gf16, gf256
 
 _BACKENDS = ("auto", "native", "numpy", "device")
 
-# Per-backend work counters (bytes = shard bytes produced).
+# Per-backend work counters (bytes = shard bytes produced), counted under a
+# lock: the node runtimes of one process code on their own pump threads.
 STATS = {b: {"calls": 0, "bytes": 0} for b in ("native", "numpy", "device")}
+_STATS_LOCK = threading.Lock()
 
 
 def stats_snapshot():
     """Copy of the per-backend encode/decode work counters."""
-    return {b: dict(v) for b, v in STATS.items()}
+    with _STATS_LOCK:
+        return {b: dict(v) for b, v in STATS.items()}
 
 
 # Decode-side artifacts are keyed by (matrix, erasure-pattern): the matrix
@@ -72,28 +76,32 @@ class _Lru:
     """Tiny insertion-ordered LRU for per-coder compiled artifacts
     (decode matrices, XOR schedules, bit matrices).  ``get`` refreshes
     recency; ``put`` returns the value and evicts the oldest entries
-    beyond ``maxsize``."""
+    beyond ``maxsize``.  Safe across threads: one process's node runtimes
+    share a coder of each shape (:func:`_shared_coder`)."""
 
-    __slots__ = ("_d", "maxsize")
+    __slots__ = ("_d", "maxsize", "_lock")
 
     def __init__(self, maxsize: int = _DECODE_CACHE_MAX):
         from collections import OrderedDict
 
         self._d = OrderedDict()
         self.maxsize = maxsize
+        self._lock = threading.Lock()
 
     def get(self, key):
-        v = self._d.get(key)
-        if v is not None:
-            self._d.move_to_end(key)
-        return v
+        with self._lock:
+            v = self._d.get(key)
+            if v is not None:
+                self._d.move_to_end(key)
+            return v
 
     def put(self, key, value):
-        self._d[key] = value
-        self._d.move_to_end(key)
-        while len(self._d) > self.maxsize:
-            self._d.popitem(last=False)
-        return value
+        with self._lock:
+            self._d[key] = value
+            self._d.move_to_end(key)
+            while len(self._d) > self.maxsize:
+                self._d.popitem(last=False)
+            return value
 
     def __len__(self):
         return len(self._d)
@@ -106,17 +114,23 @@ _native_oracle = None
 _native_checked = False
 
 
+_native_lock = threading.Lock()
+
+
 def _native():
-    """The ctypes oracle, or None when the library can't build/load."""
+    """The ctypes oracle, or None when the library can't build/load (the
+    first caller loads it; a concurrent one waits for its verdict)."""
     global _native_oracle, _native_checked
     if not _native_checked:
-        _native_checked = True
-        try:
-            from hbbft_tpu_torch.native.oracle import get_oracle
+        with _native_lock:
+            if not _native_checked:
+                try:
+                    from hbbft_tpu_torch.native.oracle import get_oracle
 
-            _native_oracle = get_oracle()
-        except Exception:
-            _native_oracle = None
+                    _native_oracle = get_oracle()
+                except Exception:
+                    _native_oracle = None
+                _native_checked = True
     return _native_oracle
 
 
@@ -152,8 +166,9 @@ def _bits_on(cache: _Lru, key, matrix: np.ndarray, to_bits, device):
 
 def _count(backend: str, out: np.ndarray) -> np.ndarray:
     s = STATS[backend]
-    s["calls"] += 1
-    s["bytes"] += int(out.shape[0]) * int(out.shape[1])
+    with _STATS_LOCK:
+        s["calls"] += 1
+        s["bytes"] += int(out.shape[0]) * int(out.shape[1])
     return out
 
 

@@ -7,9 +7,9 @@ crypto objects that DKG and vote messages carry, ``batch_bytes`` (the
 ledger digest's canonical batch bytes) and the message registry
 (``encode_message`` / ``decode_message``) of every object-mode message:
 broadcast, binary agreement, threshold sign and decrypt, subset, HoneyBadger,
-DynamicHoneyBadger, the sender queue and VID.  The flight-recorder and
-state-sync records are registered with their modules, which are not ported
-yet.
+DynamicHoneyBadger, the sender queue, VID, and the flight-recorder,
+per-transaction trace, health, performance and state-sync records of
+``obs/`` and ``net/statesync.py``.
 
 Node ids are restricted to ints and strings on the wire.
 """
@@ -449,6 +449,81 @@ def _lazy_register():
     _register(0x71, AlgoMessage,
               lambda m: encode_message(m.msg),
               lambda r: AlgoMessage(_read_message(r)))
+    # flight-recorder journal records ---------------------------------------
+    # Registered like any other message, so the journal format gets the
+    # registry's tag uniqueness and codec round trip for free.
+    from hbbft_tpu_torch.obs.flight import (
+        FlightCommit, FlightFault, FlightHello, FlightMsg, FlightNote,
+        FlightSpan,
+    )
+
+    def s(text: str) -> bytes:
+        return blob(text.encode())
+
+    def rs(r: Reader) -> str:
+        return r.blob().decode()
+
+    _register(0x80, FlightHello,
+              lambda m: (s(m.node) + s(m.flavor) + u32(m.incarnation)
+                         + u64(m.seq) + f64(m.t)),
+              lambda r: FlightHello(rs(r), rs(r), r.u32(), r.u64(),
+                                    r.f64()))
+    _register(0x81, FlightMsg,
+              lambda m: (u64(m.seq) + f64(m.t) + s(m.direction)
+                         + s(m.peer) + u64(m.era) + u64(m.epoch)
+                         + s(m.mtype) + blob(m.payload)),
+              lambda r: FlightMsg(r.u64(), r.f64(), rs(r), rs(r),
+                                  r.u64(), r.u64(), rs(r), r.blob()))
+    _register(0x82, FlightCommit,
+              lambda m: (u64(m.seq) + f64(m.t) + u64(m.era)
+                         + u64(m.epoch) + u64(m.index) + blob(m.digest)),
+              lambda r: FlightCommit(r.u64(), r.f64(), r.u64(), r.u64(),
+                                     r.u64(), r.blob()))
+    _register(0x83, FlightFault,
+              lambda m: (u64(m.seq) + f64(m.t) + s(m.node) + s(m.kind)
+                         + u64(m.era) + u64(m.epoch)),
+              lambda r: FlightFault(r.u64(), r.f64(), rs(r), rs(r),
+                                    r.u64(), r.u64()))
+    _register(0x84, FlightSpan,
+              lambda m: (u64(m.seq) + f64(m.t) + s(m.name) + u64(m.era)
+                         + u64(m.epoch)
+                         + u64(0 if m.round is None else m.round + 1)
+                         + f64(m.t_start) + f64(m.t_end) + u64(m.count)),
+              lambda r: FlightSpan(r.u64(), r.f64(), rs(r), r.u64(),
+                                   r.u64(), (lambda v: v - 1 if v else
+                                             None)(r.u64()),
+                                   r.f64(), r.f64(), r.u64()))
+    _register(0x85, FlightNote,
+              lambda m: u64(m.seq) + f64(m.t) + s(m.kind) + s(m.detail),
+              lambda r: FlightNote(r.u64(), r.f64(), rs(r), rs(r)))
+    # snapshot state-sync records (net/statesync.py) --------------------------
+    # Carried in framing.SYNC frames on client-role connections.
+    from hbbft_tpu_torch.net.statesync import (
+        SyncChunk, SyncChunkReq, SyncManifest, SyncManifestReq, SyncNack,
+    )
+
+    def rd32(r: Reader) -> bytes:
+        return r.take(32)
+
+    _register(0x90, SyncManifestReq,
+              lambda m: b"",
+              lambda r: SyncManifestReq())
+    _register(0x91, SyncManifest,
+              lambda m: (u64(m.era) + u64(m.chain_len) + m.chain_head
+                         + m.image_sha3 + u64(m.image_len)
+                         + u32(m.chunk_bytes) + u32(m.n_chunks)),
+              lambda r: SyncManifest(r.u64(), r.u64(), rd32(r), rd32(r),
+                                     r.u64(), r.u32(), r.u32()))
+    _register(0x92, SyncChunkReq,
+              lambda m: m.image_sha3 + u32(m.index),
+              lambda r: SyncChunkReq(rd32(r), r.u32()))
+    _register(0x93, SyncChunk,
+              lambda m: (m.image_sha3 + u32(m.index) + u32(m.crc)
+                         + blob(m.data)),
+              lambda r: SyncChunk(rd32(r), r.u32(), r.u32(), r.blob()))
+    _register(0x94, SyncNack,
+              lambda m: s(m.reason),
+              lambda r: SyncNack(rs(r)))
     # verifiable information dispersal (protocols/vid.py) --------------------
     from hbbft_tpu_torch.protocols.vid import (
         VidCert, VidDisperse, VidRetrieve, VidShard, VidVote,
@@ -492,6 +567,35 @@ def _lazy_register():
               lambda m: (m.root + u64(m.total_len)
                          + proof_bytes(m.proof)),
               lambda r: VidShard(rt32(r), r.u64(), read_proof(r)))
+    # per-tx causal trace record (obs/trace.py) ------------------------------
+    from hbbft_tpu_torch.obs.trace import FlightTrace
+
+    _register(0x95, FlightTrace,
+              lambda m: (u64(m.seq) + f64(m.t) + s(m.stage) + u64(m.era)
+                         + u64(m.epoch) + u32(m.hop) + s(m.detail)
+                         + blob(m.tids)),
+              lambda r: FlightTrace(r.u64(), r.f64(), rs(r), r.u64(),
+                                    r.u64(), r.u32(), rs(r), r.blob()))
+    # live health plane incident record (obs/flight.py, emitted by
+    # obs/watch.py and the runtime's local health hooks) ---------------------
+    from hbbft_tpu_torch.obs.flight import HealthIncident
+
+    _register(0x96, HealthIncident,
+              lambda m: (u64(m.seq) + f64(m.t) + s(m.source) + s(m.kind)
+                         + s(m.severity) + s(m.subject) + s(m.key)
+                         + s(m.detail)),
+              lambda r: HealthIncident(r.u64(), r.f64(), rs(r), rs(r),
+                                       rs(r), rs(r), rs(r), rs(r)))
+    # performance-plane sampling window (obs/flight.py, emitted by
+    # obs/perf.py through the flight recorder) -------------------------------
+    from hbbft_tpu_torch.obs.flight import PerfSnapshot
+
+    _register(0x97, PerfSnapshot,
+              lambda m: (u64(m.seq) + f64(m.t) + s(m.source)
+                         + f64(m.window_s) + f64(m.cpu_frac)
+                         + f64(m.headroom) + s(m.doc)),
+              lambda r: PerfSnapshot(r.u64(), r.f64(), rs(r), r.f64(),
+                                     r.f64(), r.f64(), rs(r)))
 
 
 def ensure_registered():

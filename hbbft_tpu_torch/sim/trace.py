@@ -13,10 +13,9 @@ provides both, structured:
 ``VirtualNet`` takes both as optional constructor arguments; the batched
 drivers of ``parallel/`` use :meth:`CostModel.batched_epoch_estimate`.
 
-The port's copy of the JAX package's ``sim/trace.py``.  The net-frame
-tallies and the wire-size failure counter are plain counters of this
-module (the reference keeps them on its metrics registry, which is not
-ported yet).
+The port's copy of the JAX package's ``sim/trace.py``: the net-frame
+tallies and the wire-size failure counter live on an
+:mod:`hbbft_tpu_torch.obs.metrics` registry under the reference's names.
 """
 
 from __future__ import annotations
@@ -59,16 +58,32 @@ class NetEvent:
 class EventLog:
     """Append-only per-crank event records with summary accessors.
 
-    Net-frame tallies are counters keyed by (kind, direction); the by-kind
-    accessor methods sum them.  The raw event lists are retained for
+    Net-frame counters live on an :mod:`hbbft_tpu_torch.obs.metrics` registry
+    (``hbbft_sim_net_*``, labeled kind × direction) — the by-kind accessor
+    methods are thin views over those counters, and attaching a node's
+    registry (``registry=``) makes the log's tallies scrapeable alongside
+    that node's other metrics.  The raw event lists are retained for
     detailed queries."""
 
     events: List[CrankEvent] = field(default_factory=list)
     net_events: List[NetEvent] = field(default_factory=list)
+    registry: Optional[Any] = None
 
     def __post_init__(self):
-        self._c_net_frames: Dict[Tuple[str, str], int] = {}
-        self._c_net_bytes: Dict[Tuple[str, str], int] = {}
+        if self.registry is None:
+            from hbbft_tpu_torch.obs.metrics import Registry
+
+            self.registry = Registry()
+        self._c_net_frames = self.registry.counter(
+            "hbbft_sim_net_frames_total",
+            "real-transport frames recorded by the event log",
+            labelnames=("kind", "direction"),
+        )
+        self._c_net_bytes = self.registry.counter(
+            "hbbft_sim_net_bytes_total",
+            "framed bytes recorded by the event log",
+            labelnames=("kind", "direction"),
+        )
 
     def record(self, ev: CrankEvent) -> None:
         self.events.append(ev)
@@ -80,9 +95,10 @@ class EventLog:
 
     def record_net(self, ev: NetEvent) -> None:
         self.net_events.append(ev)
-        key = (ev.kind, ev.direction)
-        self._c_net_frames[key] = self._c_net_frames.get(key, 0) + 1
-        self._c_net_bytes[key] = self._c_net_bytes.get(key, 0) + ev.wire_bytes
+        self._c_net_frames.labels(kind=ev.kind,
+                                  direction=ev.direction).inc()
+        self._c_net_bytes.labels(kind=ev.kind,
+                                 direction=ev.direction).inc(ev.wire_bytes)
         logger.debug(
             "net %s %s %s (%dB)", ev.direction, ev.peer, ev.kind,
             ev.wire_bytes,
@@ -91,10 +107,11 @@ class EventLog:
     def _sum_series(self, counter, direction: Optional[str] = None
                     ) -> Dict[str, int]:
         out: Dict[str, int] = {}
-        for (k, d), v in counter.items():
-            if direction is not None and d != direction:
+        for labels, child in counter.series():
+            if direction is not None and labels["direction"] != direction:
                 continue
-            out[k] = out.get(k, 0) + v
+            k = labels["kind"]
+            out[k] = out.get(k, 0) + int(child.get())
         return out
 
     def net_frames_by_kind(self) -> Dict[str, int]:
@@ -187,18 +204,17 @@ class CostModel:
         )
 
 
-#: messages whose wire size could not be computed, by nested type path
-#: (EventLog byte totals under-report by these)
-WIRE_SIZE_FAILURES: Dict[str, int] = {}
+_wire_size_failed_types: set = set()
 
 
 def wire_size(payload: Any) -> int:
     """Canonical wire size of a protocol message.
 
     An encode failure still returns 0 (the crank loop must not die on an
-    unencodable adversarial payload), but it is not silent: every failure
-    counts in :data:`WIRE_SIZE_FAILURES` under the nested type path, and
-    the offending type path is logged once — so EventLog byte totals can't
+    unencodable adversarial payload), but it is no longer silent: every
+    failure increments ``hbbft_sim_wire_size_failures_total`` (labeled by
+    the nested type path, on the process-wide default registry) and the
+    offending type path is logged once — so EventLog byte totals can't
     under-report without leaving a trace."""
     import struct
 
@@ -207,10 +223,17 @@ def wire_size(payload: Any) -> int:
     try:
         return len(wire.encode_message(payload))
     except (TypeError, ValueError, struct.error) as exc:
+        from hbbft_tpu_torch.obs.metrics import DEFAULT
+
         path = msg_type_path(payload)
-        first = path not in WIRE_SIZE_FAILURES
-        WIRE_SIZE_FAILURES[path] = WIRE_SIZE_FAILURES.get(path, 0) + 1
-        if first:
+        DEFAULT.counter(
+            "hbbft_sim_wire_size_failures_total",
+            "messages whose wire size could not be computed "
+            "(byte totals under-report by these)",
+            labelnames=("type",),
+        ).labels(type=path).inc()
+        if path not in _wire_size_failed_types:
+            _wire_size_failed_types.add(path)
             logger.warning(
                 "wire_size: cannot encode %s (%s) — counting as 0 bytes; "
                 "EventLog byte totals under-report this type", path, exc,

@@ -14,7 +14,8 @@ The port's copy of the JAX package's ``sim/virtual_net.py``.  The loop is
 host work; the protocol objects it drives carry their own ``device``.
 ``NetBuilder.shape`` attaches link shaping (:mod:`hbbft_tpu_torch.chaos.link`):
 shaped messages wait in a held set until the virtual clock reaches them.
-``NetBuilder.flight`` (the flight recorder) waits for ``obs/``.
+``NetBuilder.flight`` attaches a flight recorder to every node, on a
+logical clock.
 """
 
 from __future__ import annotations
@@ -207,7 +208,8 @@ class VirtualNet:
             pass
 
     def close_observers(self) -> None:
-        """Close any per-node observers that hold resources."""
+        """Close any per-node observers that hold resources (the flight
+        recorder flushes and finalizes its journal here)."""
         for obs in self.observers.values():
             close = getattr(obs, "close", None)
             if close is not None:
@@ -338,6 +340,39 @@ class NetBuilder:
         as ``net.observers[node_id]``."""
         self._observer_factory = factory
         return self
+
+    def flight(self, journal_root: str, **recorder_kwargs) -> "NetBuilder":
+        """Attach a flight recorder per node: node ``i`` journals to
+        ``<journal_root>/node-<i>`` with a **logical clock** (record
+        sequence numbers), so the same deterministic schedule produces
+        byte-identical journals.
+        Call :meth:`VirtualNet.close_observers` when the run ends."""
+        import os as _os
+
+        from hbbft_tpu_torch.obs.flight import FlightObserver, FlightRecorder
+        from hbbft_tpu_torch.obs.spans import SpanTracer
+
+        def logical_clock():
+            # per-node call counter: span timestamps must be as
+            # deterministic as the journal's record clock
+            state = [0.0]
+
+            def clock() -> float:
+                state[0] += 1.0
+                return state[0]
+
+            return clock
+
+        def factory(nid: NodeId):
+            rec = FlightRecorder(
+                _os.path.join(journal_root, f"node-{nid}"),
+                node=repr(nid), flavor="virtualnet", clock=None,
+                **recorder_kwargs,
+            )
+            return FlightObserver(
+                rec, spans=SpanTracer(node=nid, clock=logical_clock()))
+
+        return self.observe(factory)
 
     def using_step(self, make_algo: Callable[[NodeId], Any]) -> VirtualNet:
         nodes = {

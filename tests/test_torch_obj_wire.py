@@ -4,13 +4,14 @@ For every message type the port registers, a sample built from the same
 seeded keys in both packages encodes to the same bytes, and those bytes
 decode in the port to an equal, equally hashing message (and in the
 reference to one that re-encodes to them).  The port registers exactly
-the reference's tags for the object-mode, sender-queue and VID types; the
-flight-recorder and state-sync types wait for their modules.  Committed
+the reference's tags: the object-mode, sender-queue and VID types, and the
+flight-recorder, trace, health, performance and state-sync records.  Committed
 batches give equal ``batch_bytes``, the live traffic of an N = 4
 HoneyBadger epoch round-trips, and malformed input is refused as in the
-reference.  ``sim/trace.py``'s wire sizes and net-frame tallies (plain
-counters in the port) agree with the reference's, and an unencodable
-message counts in ``WIRE_SIZE_FAILURES``.  Tolerance: exact, byte for byte.
+reference.  ``sim/trace.py``'s wire sizes and net-frame tallies agree with
+the reference's, and an unencodable message counts in the default
+registry's ``hbbft_sim_wire_size_failures_total``.  Tolerance: exact, byte
+for byte.
 """
 
 import dataclasses
@@ -20,11 +21,6 @@ import pytest
 
 from test_torch_obj_protocols import PKGS, PORT, REF, infos, make_net
 
-# registered in the reference by modules the port has not yet
-NOT_PORTED = {"FlightHello", "FlightMsg", "FlightCommit", "FlightFault",
-              "FlightSpan", "FlightNote", "SyncManifestReq", "SyncManifest",
-              "SyncChunkReq", "SyncChunk", "SyncNack", "FlightTrace",
-              "HealthIncident", "PerfSnapshot"}
 
 
 def samples(p):
@@ -33,6 +29,9 @@ def samples(p):
     merkle = import_module(p.wire.__name__.replace("protocols.wire", "ops.merkle"))
     sq = import_module(p.wire.__name__.replace("wire", "sender_queue"))
     vid = import_module(p.wire.__name__.replace("wire", "vid"))
+    flight = import_module(p.wire.__name__.replace("protocols.wire", "obs.flight"))
+    trace = import_module(p.wire.__name__.replace("protocols.wire", "obs.trace"))
+    sync = import_module(p.wire.__name__.replace("protocols.wire", "net.statesync"))
     rng = random.Random(77)
     sks = p.tc.SecretKeySet.random(1, rng)
     share = sks.secret_key_share(0).sign(b"doc")
@@ -69,6 +68,22 @@ def samples(p):
         vid.VidCert(3, tree.root_hash(), 1234, ((0, sig), ("node-b", sig))),
         vid.VidRetrieve(tree.root_hash()),
         vid.VidShard(tree.root_hash(), 1234, tree.proof(2)),
+        flight.FlightHello("3", "runtime", 2, 17, 1.5),
+        flight.FlightMsg(5, 2.25, "in", "1", 0, 4, "HbWrap", b"\x01\x02"),
+        flight.FlightCommit(6, 3.0, 1, 9, 12, bytes(range(32))),
+        flight.FlightFault(7, 3.5, "2", "MultipleDecryptionShares", 0, 3),
+        flight.FlightSpan(8, 4.0, "aba_bval", 0, 3, 2, 1.0, 3.75, 9),
+        flight.FlightSpan(9, 4.0, "rbc_value", 0, 3, None, 1.0, 1.5, 1),
+        flight.FlightNote(10, 4.5, "guard", "kind=auth_fail peer='x'"),
+        sync.SyncManifestReq(),
+        sync.SyncManifest(2, 40, b"\x07" * 32, b"\x09" * 32, 70000, 32768, 3),
+        sync.SyncChunkReq(b"\x09" * 32, 1),
+        sync.SyncChunk(b"\x09" * 32, 1, 0xDEADBEEF, b"chunk-bytes"),
+        sync.SyncNack("no snapshot"),
+        trace.FlightTrace(11, 5.0, "commit", 0, 4, 3, "", b"\x05" * 32),
+        flight.HealthIncident(12, 6.0, "watchtower", "equivocation", "fault", "3",
+                              "equivocation:3", "two values"),
+        flight.PerfSnapshot(13, 7.0, "0", 1.0, 0.25, 0.5, '{"layers": {}}'),
     ]
 
 
@@ -77,7 +92,7 @@ def test_registry_matches_reference():
     PORT.wire.ensure_registered()
     ref = {cls.__name__: tag for cls, (tag, _) in REF.wire._MSG_TAGS.items()}
     got = {cls.__name__: tag for cls, (tag, _) in PORT.wire._MSG_TAGS.items()}
-    assert got == {k: v for k, v in ref.items() if k not in NOT_PORTED}
+    assert got == ref
     assert {type(m).__name__ for m in samples(PORT)} == set(got)
 
 
@@ -161,8 +176,8 @@ def test_malformed_input_is_refused(p):
 
 
 def test_event_log_net_tallies_match_reference():
-    """``EventLog``'s net-frame tallies (plain counters in the port, the
-    metrics registry in the reference) sum to the same values."""
+    """``EventLog``'s net-frame tallies (metrics-registry counters in both
+    packages) sum to the same values."""
     logs = []
     for p in PKGS:
         log = p.sim.EventLog()
@@ -176,12 +191,17 @@ def test_event_log_net_tallies_match_reference():
 
 
 def test_wire_size_counts_what_it_cannot_encode():
+    from hbbft_tpu_torch.obs.metrics import DEFAULT
     from hbbft_tpu_torch.sim import trace
 
-    before = dict(trace.WIRE_SIZE_FAILURES)
+    def failures():
+        fam = DEFAULT.get("hbbft_sim_wire_size_failures_total")
+        return 0 if fam is None else fam.value(type="HbWrap/object")
+
+    before = failures()
     bad = PORT.dhb.HbWrap(0, object())
     assert trace.wire_size(bad) == 0
     assert trace.wire_size(bad) == 0
-    assert trace.WIRE_SIZE_FAILURES["HbWrap/object"] == before.get("HbWrap/object", 0) + 2
+    assert failures() == before + 2
     assert trace.wire_size(PORT.ba.TermMsg(True)) == len(
         REF.wire.encode_message(REF.ba.TermMsg(True)))

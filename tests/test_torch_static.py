@@ -27,6 +27,14 @@ OBJECT_MODE_FILES = [ROOT / "hbbft_tpu_torch" / rel for rel in (
 NODE_STACK_FILES = [ROOT / "hbbft_tpu_torch" / rel for rel in (
     "protocols/sender_queue.py", "protocols/vid.py", "net/__init__.py",
     "net/retrieve.py", "snapshot.py", "chaos/__init__.py", "chaos/link.py")]
+# the node runtime over real sockets: the obs core and net/ from framing to
+# the cluster
+NET_OBS_FILES = [ROOT / "hbbft_tpu_torch" / rel for rel in (
+    "obs/__init__.py", "obs/metrics.py", "obs/trace.py", "obs/spans.py",
+    "obs/flight.py", "obs/http.py", "obs/perf.py",
+    "net/framing.py", "net/ingress.py", "net/transport.py", "net/scheduler.py",
+    "net/client.py", "net/degrade.py", "net/statesync.py", "net/runtime.py",
+    "net/cluster.py")]
 
 
 def _imported_roots(path):
@@ -60,6 +68,44 @@ def test_object_mode_modules_are_held_to_the_import_rule(path):
                          ids=lambda p: str(p.relative_to(ROOT / "hbbft_tpu_torch")))
 def test_node_stack_modules_are_held_to_the_import_rule(path):
     assert path in PORT_FILES
+
+
+@pytest.mark.parametrize("path", NET_OBS_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT / "hbbft_tpu_torch")))
+def test_net_and_obs_modules_are_held_to_the_import_rule(path):
+    assert path in PORT_FILES
+
+
+def test_cluster_entry_points_default_to_cuda_and_raise_without_it():
+    """``ClusterConfig()`` names ``cuda``: the builders, ``LocalCluster``,
+    ``spawn_node`` (before it starts a child) and the node CLI raise
+    without a card; ``device="cpu"`` reaches every node's stack."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from hbbft_tpu_torch import snapshot
+    from hbbft_tpu_torch.net import cluster
+
+    cfg = cluster.ClusterConfig(n=4, encrypt=True)
+    assert cfg.device == "cuda"
+    infos = cluster.generate_infos(cfg)
+    cpu = cluster.ClusterConfig(n=4, encrypt=True, device="cpu")
+    snap = snapshot.capture_join_snapshot(cluster.build_algo(cpu, infos, 0).algo.dhb,
+                                          b"\x00" * 32, 0)
+    fixed = cluster.ClusterConfig(n=4, base_port=23000)
+    for make in (
+        lambda: cluster.LocalCluster(cfg),
+        lambda: cluster.build_algo(cfg, infos, 0),
+        lambda: cluster.build_runtime(cfg, infos, 0),
+        lambda: cluster.build_runtime(cluster.ClusterConfig(n=4, vid=True), infos, 0),
+        lambda: cluster.build_joiner_runtime(cfg, snap, 0),
+        lambda: cluster.spawn_node(fixed, 0),
+        lambda: cluster.main(["--nodes", "4", "--node-id", "0", "--base-port", "23000"]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert cluster.build_algo(cpu, infos, 1).algo.dhb.hb.device == torch.device("cpu")
+    assert "--device" in cluster.node_command(
+        cluster.ClusterConfig(n=4, base_port=23000, device="cpu"), 0)
 
 
 def test_node_stack_defaults_to_cuda_and_raises_without_it():
