@@ -9,6 +9,8 @@ on one NVIDIA card.
     python3 chip_smoke.py --phases objsim   # object mode: the simulation CLI
     python3 chip_smoke.py --phases vidsim   # the node stack on VirtualNet at N = 22
     python3 chip_smoke.py --phases netsim   # the node runtime over localhost TCP at N = 22
+    python3 chip_smoke.py --phases edge22   # 22 node processes behind a gateway, the tools
+    python3 chip_smoke.py --phases edge22 --keep-journals DIR   # and keep a prefix of the journals
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -31,13 +33,12 @@ Phases, one JSON line each; any failure exits non-zero:
    timed there by CUDA events and by the profiler's device time per launch.
 5. ``kernel_ladder``: the bitwise whole-ladder kernel against the plain
    stepwise ladder on the card (plain multiply, no kernel), digit-exact and
-   inf-exact, at the encrypt shapes of both epochs (N = 64: G1 256 rows,
-   G2 128 rows; N = 1024: G1 4096, G2 2048; 132 bits) with edge rows (a
-   zero scalar, all-ones bits, base_inf padding) and at ragged row counts
-   (G1: 1, 3, 33, 129; G2: 1, 3, 65), and against the native oracle's
-   affine points on five rows of each epoch shape; each shape timed.  No
-   path runs this kernel now (the windowed one was faster at every size
-   measured); it stays held against its plain version.
+   inf-exact, at the N = 64 epoch's encrypt shapes (G1 256 rows, G2 128
+   rows; 132 bits) with edge rows (a zero scalar, all-ones bits, base_inf
+   padding), and against the native oracle's affine points on five rows
+   of each shape; each shape timed.  No path runs this kernel now (the
+   windowed one was faster at every size measured); it stays held against
+   its plain version.
 6. ``kernel_ladder_window``: the 4-bit windowed kernel, the one every path
    runs, against its plain version, digit- and inf-exact, at G1 256 / 37 /
    4 096 / 16 384 / 16 rows (N = 64 and coin256, ragged, N = 1024 and
@@ -74,7 +75,7 @@ Phases, one JSON line each; any failure exits non-zero:
    device time of the GF(2^16) encode of one 64-proposer chunk.
 12. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
     contributions) through the scale path: keygen, a warm run held against
-    the native oracle's ciphertexts, 2 timed runs with launch counts as
+    the native oracle's ciphertexts, 1 timed run with launch counts as
     derived from the code (ladder 2, SHA3 16 chunks × 11 Merkle levels,
     Kernel 1 none), and one profiled run for the device's idle share and
     the device time of the GF(2^16) product, SHA3 and the ladders.
@@ -83,7 +84,7 @@ Phases, one JSON line each; any failure exits non-zero:
     ``bench_hb_epoch4096``): keygen, the GF(2^16) coder's build (closed-form
     matrix on the host, bit matrix on the card) with its seconds and device
     memory, then ``epoch1024``'s gates and times (warm run against the
-    native oracle, 2 timed runs, launches as ``large_epoch_launches``
+    native oracle, 1 timed run, launches as ``large_epoch_launches``
     derives them: 4 encrypt chunks of 1 024 proposers, 2 ladders each; SHA3
     64 chunks × 13 Merkle levels; Kernel 1 none; a profiled run).
 14. ``sustained4096``: bench.py's ``sustained4096`` session on the same
@@ -114,11 +115,11 @@ Phases, one JSON line each; any failure exits non-zero:
     ``bivar_commitment`` on the forced route against their host values,
     and the sweeps ``crypto/batch.py``'s routing thresholds are set from,
     host against device, every route's result equal: ``bivar_commitment``
-    at t = 0 … 24, ``commitment_row``/``_eval`` at t = 2 … 181, the RLC
-    fold and the share generation by rows, TPKE encrypt and decrypt of
-    64 000-byte messages at N = 64 and 1 024, and the encrypt without the
-    native oracle.
-18. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 16 (``--dhb-n``):
+    at t = 0 … 24, ``commitment_row``/``_eval`` at t = 2 … 85 (the host
+    route was faster at every point up to t = 181), the RLC fold and the
+    share generation by rows, TPKE encrypt and decrypt of 64 000-byte
+    messages at N = 64, and the encrypt without the native oracle.
+18. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 8 (``--dhb-n``):
     plain epochs with queued transactions, a vote adding one validator,
     epochs until the change completes, 2 epochs of the new era; the new
     key set's threshold decrypt, no transaction committed twice, and the
@@ -156,7 +157,7 @@ Phases, one JSON line each; any failure exits non-zero:
     ephemeral ports), ``encrypt=True``, batches of 64, the flight recorder
     on, the device erasure backend; 250-byte transactions, each distinct,
     submitted through a ``ClusterClient`` connected to its own node.  (a)
-    the classic stack at pipeline depth 2, 128 transactions a node; (b) the
+    the classic stack at pipeline depth 2, 64 transactions a node; (b) the
     VID stack, 64 a node, whose payloads the runtimes' ``RetrieveService``s
     fetch.  Gates: every transaction committed exactly once on every node,
     one ledger-digest chain on all 22 as long as the epochs run, every
@@ -169,7 +170,42 @@ Phases, one JSON line each; any failure exits non-zero:
     10 s.  Wall time to the last commit, tx/s, client latency p50/p99, the
     pumps' segment seconds, merged calls and jobs a call, ms a fold,
     erasure bytes/s.
-22. ``kernels``: every kernel with its launches, errors and times; then the
+22. ``edge22``: the deployment ``python -m hbbft_tpu_torch.cluster_launch``
+    starts, on the card. (a) 22 node **processes** (``ClusterConfig(n=22,
+    seed=0, device="cuda", encrypt=True, batch_size=64, pipeline_depth=2)``,
+    the flight recorder on, the device erasure backend, ``netsim``'s 5 s
+    pings and 30 s dead-peer window), each under this file's ``--edge-node``
+    child mode (``netsim``'s spies; its launches, seams and loop stalls
+    written to a file when it stops); one gateway process (``python -m
+    hbbft_tpu_torch.net.gateway``) with 2 authenticated node links; the
+    open-loop generator (``net/loadgen.py``) through the gateway only: 16
+    clients, waves of 16 distinct 250-byte transactions, 64 tx/s offered
+    for 30 s; then at most 120 s until every node's ``/status`` shows every
+    admitted transaction and one chain head. (b) Two watchtower CLIs
+    (``obs.watch``), so that the poll never waits behind the tail: one
+    polls the 22 nodes and the gateway once a second until the cluster
+    settles, one tails the 22 journals through the streaming auditor until
+    it has fed every record (at most 240 s after the nodes stop); one
+    ``obs.top --json`` snapshot. (c) ``obs.audit`` and ``obs.critpath`` on
+    the 22 journals, beside the tail's catching up. (d) The campaign
+    on the card: ``smoke_grid()``, the equivocator under loss, one
+    ``garbage-stream`` and one ``spoof-nokey`` socket cell. Gates: every
+    transaction the gateway admitted journaled as committed exactly once on
+    each node; the audit ``clean`` (exit 0) with 22 chains and one head;
+    critpath's components summing to each total (to 1e-6 s); the poll
+    finishing a tick at least every 2 s under load with every target up,
+    the tail feeding every journal record and finishing the tick that fed
+    the last with the verdict ``clean``, and zero incidents from either;
+    22 node rows and a gateway row; 0 decode
+    failures and 21 peers on every ``/status``; summed over the processes,
+    ``ladder_window`` launches = 2 × merged share-set jobs, no host fold,
+    no other launch; every erasure product on the card; every node process
+    with ``torch.cuda.is_available()`` and its stack on ``cuda``; smoke
+    cells clean and committing, the equivocator triaged to node 3 and its
+    first epoch, the socket cells clean and committing with the flood
+    attributed to the claimed identity and every spoofed hello refused and
+    attributed to the attacker's endpoint.
+23. ``kernels``: every kernel with its launches, errors and times; then the
     whole run's seconds.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
@@ -184,12 +220,15 @@ package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import contextlib
 import hashlib
 import json
 import os
 import random
+import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -260,7 +299,7 @@ LADDER_KERNELS = ("ladder_lazy", "ladder_window")
 # 190 B for the same 64 000-byte contributions), through the GF(2^16) coder
 N_LARGE = 1024
 F_LARGE = 341
-TIMED_EPOCHS_LARGE = 2
+TIMED_EPOCHS_LARGE = 1
 # BASELINE config 5 (bench.py's ``bench_hb_epoch4096`` and
 # ``sustained4096``): N = 4096, f = 1365 (k = 1366), one 64-byte transaction
 # a node, ciphertexts of 358 B, shards of 2 B; the sustained session's
@@ -268,8 +307,8 @@ TIMED_EPOCHS_LARGE = 2
 N_4096 = 4096
 F_4096 = 1365
 CONTRIB_BYTES_4096 = 64
-TIMED_EPOCHS_4096 = 2
-SUSTAINED_EPOCHS = 8
+TIMED_EPOCHS_4096 = 1
+SUSTAINED_EPOCHS = 4
 
 
 def merkle_root_levels(n: int) -> int:
@@ -729,12 +768,11 @@ def _ladder_rows(group: str, rows: int, rng):
     return pts, scalars
 
 
-# the ladder shapes of the N = 64 and N = 1024 epochs (one encrypt chunk
-# each: G1 rows = 2 × pad(2N), G2 rows = 2 × pad(N)), then ragged row
-# counts (a block layout that assumed a multiple of its rows would show there)
-LADDER_ROWS = {"g1": (4 * N_NODES, 4 * N_LARGE, 1, 3, 33, 129),
-               "g2": (2 * N_NODES, 2 * N_LARGE, 1, 3, 65)}
-LADDER_MAIN = 2  # the leading entries that are epoch shapes, each timed
+# the ladder shapes of the N = 64 epoch (its encrypt: G1 rows = 2 × pad(2N),
+# G2 rows = 2 × pad(N)).  No path runs this kernel: the N = 1024 shapes and
+# the ragged row counts are left out (their plain ladders took ~30 s).
+LADDER_ROWS = {"g1": (4 * N_NODES,), "g2": (2 * N_NODES,)}
+LADDER_MAIN = 1  # the leading entries that are epoch shapes, each timed
 
 
 def phase_kernel_ladder(ctx):
@@ -786,7 +824,8 @@ def phase_kernel_ladder(ctx):
         # the reference: the ragged cases in one call, then each epoch
         # shape alone, whose time is the plain version's
         plain_ms = {}
-        for idx in [range(LADDER_MAIN, len(cases))] + [[i] for i in range(LADDER_MAIN)]:
+        ragged = [range(LADDER_MAIN, len(cases))] if len(cases) > LADDER_MAIN else []
+        for idx in ragged + [[i] for i in range(LADDER_MAIN)]:
             (ref, ref_inf), n_all, ms_all = plain(idx)
             if len(idx) == 1:
                 plain_ms[idx[0]] = ms_all
@@ -836,7 +875,7 @@ def phase_kernel_ladder(ctx):
                            "event_ms_per_launch": ev_ms, "plain_ms": plain_ms[i],
                            "bound_ms": bms, "bound_by": by, "bytes": n_bytes, "ops": n_ops,
                            "oracle_rows": checked})
-        groups[group] = {**shapes[0], "n1024": shapes[1],
+        groups[group] = {**shapes[0],
                          "ragged_rows_checked": list(LADDER_ROWS[group][LADDER_MAIN:])}
 
     def pair(shape_of):
@@ -854,8 +893,7 @@ def phase_kernel_ladder(ctx):
             "rows": {k: shape_of(g)["rows"] for k, g in groups.items()},
         }
 
-    ctx["ladder"] = {"max_abs_err": max_err, **pair(lambda g: g),
-                     "n1024": pair(lambda g: g["n1024"])}
+    ctx["ladder"] = {"max_abs_err": max_err, **pair(lambda g: g)}
     return {"max_abs_err": max_err, "tolerance": 0, "digit_exact": True, "inf_exact": True,
             "by_group": groups}
 
@@ -1872,10 +1910,10 @@ DKG_THRESHOLDS = ("DEVICE_BIVAR_MIN_BATCH", "DEVICE_ROW_MIN_BATCH", "DEVICE_EVAL
 # fold and the share generation by rows, the TPKE encrypt/decrypt at the
 # epochs' N with their 64 000-byte contributions
 BIVAR_SWEEP_T = (0, 1, 2, 3, 4, 6, 8, 24)
-ROW_SWEEP_T = (2, 8, 24, DKG_T, 127, 181)
+ROW_SWEEP_T = (2, 8, 24, DKG_T)
 FOLD_SWEEP = (1, 2, 4, 8, 16, 32, 64, 256, 1024, 4096)
 SHARE_GEN_SWEEP = (1, 4, 8, 16, 64, 256, 1024)
-TPKE_SWEEP_N = (N_NODES, N_LARGE)
+TPKE_SWEEP_N = (N_NODES,)
 # AUTO encrypt without the native oracle: the per-item Python route
 # against the device route, by items
 NO_ORACLE_SWEEP = (1, 2, 4, 16, 64)
@@ -1986,9 +2024,9 @@ def phase_dkg256(ctx):
     ``bivar_commitment`` on the forced device route against their host
     values; then the sweeps that ``crypto/batch.py``'s routing thresholds
     are set from, host against device: ``bivar_commitment`` by degree,
-    ``commitment_row``/``_eval`` up to t = 181, ``rlc_fold_g1`` and
+    ``commitment_row``/``_eval`` up to t = 85, ``rlc_fold_g1`` and
     ``batch_decrypt_share_gen`` by rows, and TPKE encrypt and decrypt at
-    N = 64 and 1 024 — every route's result equal."""
+    N = 64 — every route's result equal."""
     import torch
 
     from hbbft_tpu_torch import _build
@@ -2042,7 +2080,7 @@ def phase_dkg256(ctx):
         if h.to_bytes() != d.to_bytes():
             raise AssertionError(f"bivar_commitment at t={t}: the routes differ")
         bivar.append({"t": t, "muls": (t + 1) ** 2, "host_s": h_s, "device_s": d_s})
-    # commitment_row / commitment_eval up to t = 181 (the commitments made on
+    # commitment_row / commitment_eval up to t = 85 (the commitments made on
     # the device); x and y as node indices are, small
     row, ev = [], []
     for t in ROW_SWEEP_T:
@@ -2111,7 +2149,7 @@ def phase_dkg256(ctx):
 
 # the dhb cell: a membership change at DHB_N validators (one added: the
 # new set has DHB_N + 1), small transactions; ``--dhb-n`` sets another N
-DHB_N = 16
+DHB_N = 8
 DHB_BATCH = 16
 DHB_FILL = 64
 
@@ -2853,7 +2891,7 @@ NETSIM_BATCH = 64
 NETSIM_TX_BYTES = 250
 # the mempool's per-transaction ceiling: 64 of them must fit half a wire blob
 NETSIM_MAX_TX_BYTES = 4096
-NETSIM_STACKS = (("classic", False, 128, 2), ("vid", True, 64, 1))  # name, vid, txs a node, depth
+NETSIM_STACKS = (("classic", False, 64, 2), ("vid", True, 64, 1))  # name, vid, txs a node, depth
 NETSIM_DEVICE = "cuda"
 NETSIM_BUDGET_S = 400.0  # one stack, start to stop
 NETSIM_STOP_S = 10.0
@@ -3113,6 +3151,648 @@ def phase_netsim(ctx):
     return out
 
 
+EDGE_N = 22
+EDGE_SEED = 0
+EDGE_BATCH = 64
+EDGE_DEPTH = 2
+EDGE_DEVICE = "cuda"
+EDGE_MAX_TX_BYTES = NETSIM_MAX_TX_BYTES
+EDGE_GATEWAY_LINKS = 2
+# the open-loop load through the gateway: 250-byte distinct transactions (the
+# HoneyBadgerBFT paper's size), 16 clients in waves of 16, 64 tx/s offered
+# for 30 s
+EDGE_TX_BYTES = 250
+EDGE_CLIENTS = 16
+EDGE_WAVE = 16
+EDGE_RATE = 64.0
+EDGE_WINDOW_S = 30.0
+EDGE_BOOT_S = 240.0      # every node's /status answering, the gateway's links up
+EDGE_SETTLE_S = 120.0    # after loadgen: every admitted transaction on every node
+EDGE_WATCH_INTERVAL_S = 1.0
+# the longest a poll tick may take: its sleep, then a scrape bounded by its
+# socket timeout plus 1 s of grace (Watchtower.scrape)
+EDGE_SCRAPE_TIMEOUT_S = 2.0
+EDGE_WATCH_TICK_S = EDGE_WATCH_INTERVAL_S + EDGE_SCRAPE_TIMEOUT_S + 1.0
+EDGE_TAIL_S = 240.0      # after the nodes stop: the journal tail has fed every record
+# netsim's slower pings and longer dead window, not the defaults' 0.5 s and
+# 3 s: under this load a node process's event loop stalls for up to ~5 s, so
+# at the defaults links die and redial by the hundred, and a redial torn
+# mid-handshake is journaled as an auth failure that the watchtower raises
+EDGE_HEARTBEAT_S = NETSIM_HEARTBEAT_S
+EDGE_DEAD_AFTER_S = NETSIM_DEAD_AFTER_S
+
+
+def _edge_node(out_path: str, argv) -> int:
+    """Child mode of ``edge22``: ``chip_smoke.py --edge-node OUT NODE-ARGS``
+    runs one node as ``python -m hbbft_tpu_torch.net.cluster NODE-ARGS``
+    would, under ``netsim``'s spies, and when the node stops writes to OUT
+    its kernel launches, seam counts, erasure products, pump segments, event
+    loop lag and devices.  Spies in the parent cannot see a child's
+    launches."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.net import cluster
+    from hbbft_tpu_torch.ops import rs
+
+    rec = {"pid": os.getpid(), "cuda_available": torch.cuda.is_available()}
+    held, lags = {}, []
+    build_runtime = cluster.build_runtime
+
+    async def loop_lag():  # how late a 50 ms sleep wakes: this node's loop stalls
+        while True:
+            t = time.perf_counter()
+            await asyncio.sleep(0.05)
+            lags.append(time.perf_counter() - t - 0.05)
+
+    def spy_build_runtime(cfg, infos, nid, *args, **kw):
+        rt = build_runtime(cfg, infos, nid, *args, **kw)
+        held["rt"] = rt
+        held["lag"] = asyncio.ensure_future(loop_lag())
+        rec.update(node=nid, device=str(cfg.device),
+                   stack_device=str(rt.sq.algo.dhb.hb.device))
+        return rt
+
+    cluster.build_runtime = spy_build_runtime
+    stats0 = rs.stats_snapshot()
+    with _netsim_spies(B, rs) as spy:
+        try:
+            cluster.main(argv)
+        finally:
+            if torch.cuda.is_available() and torch.cuda.is_initialized():
+                torch.cuda.synchronize()
+            stats1 = rs.stats_snapshot()
+            rt = held.get("rt")
+            rec.update({
+                "launches": dict(_build.LAUNCHES),
+                "seams": {**spy, "devices": sorted(spy["devices"])},
+                "erasure": {b: {k: stats1[b][k] - stats0[b][k] for k in stats1[b]}
+                            for b in stats1},
+                "loop_lag_s": {"p50": statistics.median(lags) if lags else None,
+                               "max": max(lags, default=None), "samples": len(lags)},
+            })
+            if rt is not None:
+                rec["pump_segment_s"] = {k: rt._pump_seg[k].sum for k in NETSIM_SEGMENTS}
+                rec["pump_iterations"] = rt.pump.iterations
+                rec["batches"] = len(rt.batches)
+            with open(out_path + ".tmp", "w") as fh:
+                json.dump(rec, fh)
+            os.replace(out_path + ".tmp", out_path)
+    return 0
+
+
+@contextlib.contextmanager
+def _edge_node_commands(cluster, stats_dir: str):
+    """``spawn_node`` builds its command with ``cluster.node_command``: while
+    the block runs, that command runs this file's ``--edge-node`` child mode
+    with the same node arguments."""
+    node_command = cluster.node_command
+
+    def command(cfg, nid):
+        cmd = node_command(cfg, nid)
+        if cmd[1:3] != ["-m", "hbbft_tpu_torch.net.cluster"]:
+            raise AssertionError(f"edge22: unexpected node command {cmd}")
+        return [cmd[0], os.path.join(HERE, "chip_smoke.py"), "--edge-node",
+                os.path.join(stats_dir, f"node-{nid}.json"), *cmd[3:]]
+
+    cluster.node_command = command
+    try:
+        yield
+    finally:
+        cluster.node_command = node_command
+
+
+def _edge_journals(flight_root: str):
+    """Per node, how often each transaction's trace id was journaled as
+    committed (``FlightTrace`` ``commit`` records); and the records a
+    journal tail feeds its auditor (every one but the segments'
+    ``FlightHello``s) and the journals' bytes."""
+    from hbbft_tpu_torch.obs.flight import FlightHello, find_journal_dirs, read_journal
+    from hbbft_tpu_torch.obs.trace import FlightTrace, iter_tids
+
+    out, records, size = {}, 0, 0
+    for d in find_journal_dirs(flight_root):
+        j = read_journal(d)
+        size += sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        counts = {}
+        for _inc, r in j.records:
+            if isinstance(r, FlightTrace) and r.stage == "commit":
+                for tid in iter_tids(r.tids):
+                    counts[tid] = counts.get(tid, 0) + 1
+            records += not isinstance(r, FlightHello)
+        out[j.node] = counts
+    return out, records, size
+
+
+def _ephemeral_ports():
+    """The kernel's local port range for outgoing connections, where it
+    says (a run's fixed ports may lie inside it)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as fh:
+            return [int(x) for x in fh.read().split()]
+    except (OSError, ValueError):
+        return None
+
+
+def _edge_statuses(cfg):
+    from hbbft_tpu_torch.obs.http import http_get
+
+    return [json.loads(http_get(*cfg.metrics_addr(i), "/status", timeout_s=5.0))
+            for i in range(cfg.n)]
+
+
+async def _edge_wait(what: str, cond, timeout_s: float, poll_s: float = 0.5):
+    """Poll ``cond`` (run in a thread; OSError counts as not yet) until it
+    returns a true value, at most ``timeout_s``."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            got = await asyncio.to_thread(cond)
+        except OSError:
+            got = None
+        if got:
+            return got
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"edge22: {what} not reached in {timeout_s:.0f} s")
+        await asyncio.sleep(poll_s)
+
+
+def _edge_cli(args, out_path: str, timeout_s: float = 300.0):
+    """One ``python -m hbbft_tpu_torch.<module>`` run with its stdout kept in
+    ``out_path``; returns (exit code, stdout)."""
+    with open(out_path, "w") as fh:
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=HERE, stdout=fh,
+                              timeout=timeout_s)
+    with open(out_path) as fh:
+        return proc.returncode, fh.read()
+
+
+def _edge_keep_journals(flight_root: str, path: str) -> None:
+    """The first segment of every journal under ``flight_root``, as a
+    gzipped tar at ``path``: a prefix of the whole set that fits beside a
+    run's output."""
+    import tarfile
+
+    from hbbft_tpu_torch.obs.flight import find_journal_dirs
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with tarfile.open(path, "w:gz") as tar:
+        for d in find_journal_dirs(flight_root):
+            first = min(f for f in os.listdir(d) if f.endswith(".fjl"))
+            tar.add(os.path.join(d, first), os.path.join(os.path.basename(d), first))
+
+
+def _edge_watch_start(root: str, name: str, port: int, args):
+    """A ``python -m hbbft_tpu_torch.obs.watch ARGS`` process ticking every
+    EDGE_WATCH_INTERVAL_S, serving its ``/health`` on ``port``, its
+    incidents (JSONL) and log kept in ``root`` under ``name``."""
+    paths = [os.path.join(root, f"{name}.{ext}") for ext in ("jsonl", "log")]
+    with open(paths[0], "w") as out, open(paths[1], "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "hbbft_tpu_torch.obs.watch", *args, "--json",
+             "--interval", str(EDGE_WATCH_INTERVAL_S), "--serve-port", str(port)],
+            cwd=HERE, stdout=out, stderr=log)
+    return proc, paths
+
+
+def _edge_watch_stop(proc, paths) -> dict:
+    """Interrupt a watchtower; its exit code, incidents and the ticks its
+    summary line counts (the last of them may have been cut short)."""
+    proc.send_signal(signal.SIGINT)
+    proc.wait(timeout=60)
+    with open(paths[0]) as fh:
+        incidents = [json.loads(ln) for ln in fh if ln.strip()]
+    with open(paths[1]) as fh:
+        summary = fh.read().strip().splitlines()[-1:]
+    ticks = re.search(r"over (\d+) ticks", summary[0]) if summary else None
+    return {"rc": proc.returncode, "incidents": incidents, "summary": summary,
+            "ticks": int(ticks.group(1)) if ticks else 0}
+
+
+def _edge_health(addr, tries: int = 1):
+    """A watchtower's ``/health``, or None while it does not answer in
+    ``tries`` attempts (on the journal tail's process the server thread's
+    derivation can race the poll feeding it)."""
+    import http.client
+
+    from hbbft_tpu_torch.obs.http import http_get
+
+    for attempt in range(tries):
+        try:
+            return json.loads(http_get(*addr, "/health", timeout_s=10.0))
+        except (OSError, ValueError, http.client.HTTPException):
+            if attempt + 1 < tries:
+                time.sleep(1.0)
+    return None
+
+
+def _edge_tail(addr, watcher, records: int) -> dict:
+    """Wait, at most EDGE_TAIL_S, until the journal-tail watchtower at
+    ``addr`` has fed its auditor ``records`` records and finished the tick
+    that fed the last of them, incident extraction included (its next tick
+    has begun); then interrupt it."""
+    t0 = time.perf_counter()
+    doc, fed_in, first = None, None, None
+    while time.perf_counter() - t0 < EDGE_TAIL_S and watcher[0].poll() is None:
+        doc = _edge_health(addr) or doc
+        if doc is not None and first is None:  # how far behind the tail was
+            first = {"s": time.perf_counter() - t0, "records": doc["audit"]["records"]}
+        if doc is not None and fed_in is None and doc["audit"]["records"] >= records:
+            fed_in = doc["ticks"]
+        if fed_in is not None and doc["ticks"] > fed_in:
+            break
+        time.sleep(2.0)
+    out = _edge_watch_stop(*watcher)
+    out.update(catch_up_s=time.perf_counter() - t0, first_answer=first,
+               records=doc and doc["audit"]["records"],
+               verdict=doc and doc["audit"]["verdict"],
+               evaluated=fed_in is not None and doc["ticks"] > fed_in)
+    return out
+
+
+def edge_deployment(root: str, n: int = EDGE_N, device: str = EDGE_DEVICE,
+                    window_s: float = EDGE_WINDOW_S, rate: float = EDGE_RATE,
+                    clients: int = EDGE_CLIENTS, smi: str = "", keep: str = "") -> dict:
+    """``edge22`` (a)–(c): ``n`` node processes started by the port's
+    launcher, one gateway process, open-loop load through it with two
+    watchtowers (the SLO poll, the journal tail) and ``obs.top`` looking
+    on, then the post-mortem on the journals while the tail catches up.
+    With ``keep``, the first segment of every node's journal is written to
+    ``keep/edge22-journals.tgz``.  Every gate raises; returns the record."""
+    watchers = {}
+    try:
+        return _edge_deployment(root, watchers, n, device, window_s, rate, clients, smi, keep)
+    finally:
+        for proc, _paths in watchers.values():
+            proc.kill()
+            proc.wait()
+
+
+def _edge_deployment(root, watchers, n, device, window_s, rate, clients, smi, keep) -> dict:
+    from hbbft_tpu_torch import cluster_launch
+    from hbbft_tpu_torch.net import cluster, loadgen
+    from hbbft_tpu_torch.obs.http import http_get
+    from hbbft_tpu_torch.obs.trace import trace_id
+
+    flight, stats = os.path.join(root, "flight"), os.path.join(root, "stats")
+    os.makedirs(stats)
+    base = cluster.find_free_base_port(2 * n + 3)
+    gw_metrics = base + 2 * n
+    slo_addr, tail_addr = ("127.0.0.1", base + 2 * n + 1), ("127.0.0.1", base + 2 * n + 2)
+    cfg = cluster_launch.build_config(cluster_launch.parse_args([
+        "--nodes", str(n), "--seed", str(EDGE_SEED), "--batch-size", str(EDGE_BATCH),
+        "--max-tx-bytes", str(EDGE_MAX_TX_BYTES), "--base-port", str(base),
+        "--flight-dir", flight, "--encrypt", "--pipeline-depth", str(EDGE_DEPTH),
+        "--heartbeat-s", str(EDGE_HEARTBEAT_S), "--dead-after-s", str(EDGE_DEAD_AFTER_S),
+        "--device", device]))
+    rec = {"smi": smi, "n": n, "device": device, "batch_size": EDGE_BATCH,
+           "pipeline_depth": EDGE_DEPTH,
+           "heartbeat_s": cfg.heartbeat_s, "dead_after_s": cfg.dead_after_s,
+           "host_cpus": os.cpu_count(), "ephemeral_ports": _ephemeral_ports(),
+           "seconds": {}}
+    shape = loadgen.LoadShape(tx_bytes=EDGE_TX_BYTES, clients=clients, wave_txs=EDGE_WAVE,
+                              rate_tx_s=rate, duration_s=window_s)
+    rec["load"] = {k: getattr(shape, k) for k in ("tx_bytes", "clients", "wave_txs",
+                                                  "rate_tx_s", "duration_s", "drain_s")}
+    node_targets = ",".join("%s:%d" % cfg.metrics_addr(i) for i in range(n))
+    procs, gw_procs = {}, []
+    log_path = os.path.join(root, "nodes.log")
+    t_phase = time.perf_counter()
+    gw_target = ("127.0.0.1", gw_metrics)
+    try:
+        # the gateway's and the watchtowers' fixed ports stay held from
+        # before the nodes dial until each has its listener (a node's dial
+        # could otherwise take one as its local port)
+        with cluster.hold_ports("127.0.0.1", [gw_metrics, slo_addr[1], tail_addr[1]]):
+            with open(log_path, "w") as log, _edge_node_commands(cluster, stats), \
+                    contextlib.redirect_stdout(sys.stderr):
+                procs = cluster_launch.launch(cfg, stdout=log, stderr=subprocess.STDOUT)
+            rec["seconds"]["spawn"] = time.perf_counter() - t_phase
+            # the gateway prints its address once its obs port is bound
+            gw_procs, gw_addrs = loadgen.spawn_gateways(
+                cfg, 1, node_links=EDGE_GATEWAY_LINKS, metrics_base_port=gw_metrics)
+            # the live view, two watchtowers, so that the poll never waits
+            # behind the tail: one polls every node and the gateway once a
+            # second (the SLO rules), one tails the journals through the
+            # streaming auditor
+            watchers["slo"] = _edge_watch_start(
+                root, "watch-slo", slo_addr[1],
+                ["--targets", node_targets, "--gateways", "%s:%d" % gw_target,
+                 "--scrape-timeout", str(EDGE_SCRAPE_TIMEOUT_S)])
+            watchers["tail"] = _edge_watch_start(root, "watch-tail", tail_addr[1],
+                                                 ["--journals", flight])
+            cluster.wait_listening([slo_addr, tail_addr],
+                                   [watchers["slo"][0], watchers["tail"][0]], EDGE_BOOT_S)
+
+        async def session():
+            t0 = time.perf_counter()
+            await _edge_wait("every node's /status", lambda: _edge_statuses(cfg), EDGE_BOOT_S)
+            await _edge_wait("the gateway's node links", lambda: sum(
+                1 for li in json.loads(http_get(*gw_target, "/status"))["links"]
+                if li["connected"]) == EDGE_GATEWAY_LINKS, EDGE_BOOT_S)
+            rec["seconds"]["boot"] = time.perf_counter() - t0
+            gen = loadgen.LoadGenerator(gw_addrs, cfg.cluster_id, shape)
+            t1 = time.perf_counter()
+            load = asyncio.ensure_future(gen.run())
+            await asyncio.sleep(window_s / 2)
+            t_top = time.perf_counter()  # one GET at a time, each waiting out a stalled loop
+            snap = await asyncio.to_thread(
+                _edge_cli, ["hbbft_tpu_torch.obs.top", "--json", "--targets", node_targets,
+                            "--gateways", "%s:%d" % gw_target],
+                os.path.join(root, "top.json"), 240.0)
+            rec["seconds"]["top"] = time.perf_counter() - t_top
+            report = await load
+            rec["seconds"]["load"] = time.perf_counter() - t1
+            admitted = json.loads(http_get(*gw_target, "/status"))["submissions"]["accepted"]
+            t2 = time.perf_counter()
+
+            def settled():
+                docs = _edge_statuses(cfg)
+                heads = {(d["chain_len"], d["digest_chain"][-1] if d["digest_chain"] else "")
+                         for d in docs}
+                if len(heads) == 1 and all(d["committed_txs"] >= admitted for d in docs):
+                    return docs
+                return None
+
+            docs = await _edge_wait("every admitted transaction on every node, one chain head",
+                                    settled, EDGE_SETTLE_S)
+            rec["seconds"]["settle"] = time.perf_counter() - t2
+            rec["wall_to_last_commit_s"] = time.perf_counter() - t1
+            gw_doc = json.loads(http_get(*gw_target, "/status"))
+            return gen, report, snap, docs, gw_doc
+
+        gen, report, snap, docs, gw_doc = asyncio.run(session())
+        slo_doc = _edge_health(slo_addr, tries=3)
+        rec["watch"] = {"slo": {**_edge_watch_stop(*watchers.pop("slo")),
+                                "targets_up": slo_doc and slo_doc["targets_up"]}}
+        rc, out = snap
+        snapshot = json.loads(out)
+        rec["top"] = {"rc": rc, "node_rows": len(snapshot["nodes"]),
+                      "nodes_up": sum(1 for d in snapshot["nodes"] if d["up"]),
+                      "gateway_rows": len(snapshot.get("gateways", []))}
+        rec["loadgen"] = {k: report[k] for k in (
+            "offered_txs", "submitted_txs", "shed_txs", "local_drops", "ack_timeouts",
+            "committed_txs", "wall_s", "tx_per_s", "p50_ms", "p99_ms")}
+        rec["gateway"] = {k: gw_doc[k] for k in ("submissions", "forwarded", "commits_relayed",
+                                                 "sheds", "link_failovers")}
+        admitted = gw_doc["submissions"]["accepted"]
+        rec["admitted"] = admitted
+        rec["tx_per_s"] = admitted / rec["wall_to_last_commit_s"]
+        rec["status"] = {k: sorted({d[k] for d in docs}) for k in
+                         ("committed_txs", "decode_failures", "peers_connected", "batches")}
+        rec["dead_peer_events"] = sum(d["stats"]["dead_peer_events"] for d in docs)
+        auth = {}
+        for d in docs:
+            for reason, v in d["guard"]["ingress"]["auth_failures"].items():
+                auth[reason] = auth.get(reason, 0) + v
+        rec["auth_failures"] = auth
+        rec["reconnects"] = sum(sum(d["stats"]["reconnects"].values()) for d in docs)
+        offered = {trace_id(tx) for c in range(shape.clients)
+                   for w in range(report["offered_txs"] // shape.wave_txs + 1)
+                   for tx in gen._make_wave(c, w)}
+    except BaseException:
+        with open(log_path) as fh:
+            sys.stderr.write("edge22: the node processes' log, last 8 KB:\n" + fh.read()[-8192:])
+        raise
+    finally:
+        t_stop = time.perf_counter()
+        cluster.shutdown_procs(gw_procs)
+        cluster.shutdown_procs(procs.values())
+        rec["seconds"]["stop"] = time.perf_counter() - t_stop
+    codes = {i: p.returncode for i, p in procs.items()}
+    # the children's own records
+    kids = {}
+    for i in range(n):
+        path = os.path.join(stats, f"node-{i}.json")
+        if not os.path.exists(path):
+            raise AssertionError(f"edge22: node {i} wrote no record (exit {codes[i]})")
+        with open(path) as fh:
+            kids[i] = json.load(fh)
+    rec["exit_codes"] = sorted(set(codes.values()))
+    # (c) the post-mortem on the journals, through the CLIs, side by side
+    # with this process's own count of the journaled commits
+    t3 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        audit_run = pool.submit(_edge_cli, ["hbbft_tpu_torch.obs.audit", flight, "--json"],
+                                os.path.join(root, "audit.json"))
+        cp_run = pool.submit(_edge_cli, ["hbbft_tpu_torch.obs.critpath", flight, "--json",
+                                         "--waterfalls", str(10 ** 9)],
+                             os.path.join(root, "critpath.json"))
+        commits, journal_records, journal_bytes = _edge_journals(flight)
+        rec["watch"]["tail"] = _edge_tail(tail_addr, watchers.pop("tail"), journal_records)
+        (audit_rc, audit_out), (cp_rc, cp_out) = audit_run.result(), cp_run.result()
+    audit, cp = json.loads(audit_out), json.loads(cp_out)
+    rec["seconds"]["post_mortem"] = time.perf_counter() - t3
+    rec["journals"] = {"records": journal_records, "bytes": journal_bytes}
+    if keep:
+        _edge_keep_journals(flight, os.path.join(keep, "edge22-journals.tgz"))
+    heads = {c["head"] for c in audit["chains"].values()}
+    rec["audit"] = {"rc": audit_rc, "verdict": audit["verdict"], "chains": len(audit["chains"]),
+                    "heads": len(heads), "chain_len": sorted({c["len"] for c in
+                                                              audit["chains"].values()}),
+                    "torn_tails": audit["torn_tails"],
+                    "unmatched_receives": audit["unmatched_receives"]}
+    sums = [abs(sum(r["components"].values()) - r["total_s"]) for r in cp["waterfalls"]]
+    widths = [d["bound_s"] for d in cp["clock_offsets"].values() if d["bound_s"] is not None]
+    rec["critpath"] = {
+        "rc": cp_rc, "txs_committed": cp["txs_committed"],
+        "txs_reconstructed": cp["txs_reconstructed"],
+        "max_component_sum_error_s": max(sums, default=None),
+        "p50": cp.get("p50"), "p99": cp.get("p99"),
+        "clock_offset_bound_s": {"min": min(widths, default=None),
+                                 "median": statistics.median(widths) if widths else None,
+                                 "max": max(widths, default=None),
+                                 "unaligned": cp["unmatched"]["unaligned_processes"]},
+    }
+    # the children's device work, summed
+    launches = {}
+    for k in kids.values():
+        for name, v in k["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+    seams = {key: sum(k["seams"][key] for k in kids.values()) for key in
+             ("verify_calls", "jobs", "folds", "host_folds", "share_gens", "host_share_gens",
+              "products", "fold_s", "verify_s", "product_s")}
+    erasure = {b: {key: sum(k["erasure"][b][key] for k in kids.values())
+                   for key in kids[0]["erasure"][b]} for b in kids[0]["erasure"]}
+    ms_fold = [1e3 * k["seams"]["fold_s"] / k["seams"]["folds"]
+               for k in kids.values() if k["seams"]["folds"]]
+    lag_max = [k["loop_lag_s"]["max"] for k in kids.values() if k["loop_lag_s"]["max"] is not None]
+    rec.update({
+        "launches": launches, "seams": seams, "erasure": erasure,
+        "jobs_per_verify_call": seams["jobs"] / seams["verify_calls"] if seams["verify_calls"] else None,
+        "ms_per_fold_by_process": {"min": min(ms_fold, default=None),
+                                   "median": statistics.median(ms_fold) if ms_fold else None,
+                                   "max": max(ms_fold, default=None)},
+        "pump_segment_s": {s: sum(k.get("pump_segment_s", {}).get(s, 0.0) for k in kids.values())
+                           for s in NETSIM_SEGMENTS},
+        "loop_lag_s": {"max_by_process_median": statistics.median(lag_max) if lag_max else None,
+                       "max": max(lag_max, default=None)},
+        "children": {"cuda_available": sorted({k["cuda_available"] for k in kids.values()}),
+                     "device": sorted({k.get("device") for k in kids.values()}),
+                     "stack_device": sorted({k.get("stack_device") for k in kids.values()}),
+                     "seam_devices": sorted({d for k in kids.values()
+                                             for d in k["seams"]["devices"]})},
+    })
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    # the gates
+    on_card = device != "cpu"
+    want_dev = ["cuda"] if on_card else ["cpu"]
+    expected = 2 * seams["jobs"] + seams["share_gens"]
+    gates = {
+        # under load and settling, the poll finished a tick at least every
+        # EDGE_WATCH_TICK_S (the last tick counted may have been cut short)
+        "the SLO watchtower: polls of every node and the gateway, no incident": (
+            rec["watch"]["slo"]["ticks"] - 1
+            >= (rec["seconds"]["load"] + rec["seconds"]["settle"]) / EDGE_WATCH_TICK_S
+            and rec["watch"]["slo"]["targets_up"] == n + 1
+            and not rec["watch"]["slo"]["incidents"] and not rec["watch"]["slo"]["rc"]),
+        "the journal tail: every record fed and evaluated, clean, no incident": (
+            rec["watch"]["tail"]["records"] == journal_records
+            and rec["watch"]["tail"]["evaluated"] and rec["watch"]["tail"]["verdict"] == "clean"
+            and not rec["watch"]["tail"]["incidents"] and not rec["watch"]["tail"]["rc"]),
+        "obs.top: every node up and a gateway row": (
+            rec["top"]["node_rows"] == n and rec["top"]["nodes_up"] == n
+            and rec["top"]["gateway_rows"] == 1 and not rec["top"]["rc"]),
+        "the gateway admitted transactions and nothing was shed": (
+            admitted > 0 and not rec["gateway"]["sheds"] and not report["shed_txs"]),
+        "every admitted transaction journaled as committed once on every node": (
+            len(commits) == n and all(
+                len(c) == admitted and set(c.values()) == {1} and not set(c) - offered
+                for c in commits.values())),
+        "the audit clean with every chain and one head": (
+            audit["verdict"] == "clean" and not audit_rc and len(audit["chains"]) == n
+            and len(heads) == 1),
+        "critpath's components sum to each total": (
+            not cp_rc and cp["txs_reconstructed"] > 0
+            and rec["critpath"]["max_component_sum_error_s"] < 1e-6),
+        "0 decode failures and every peer on every /status": (
+            rec["status"]["decode_failures"] == [0]
+            and rec["status"]["peers_connected"] == [n - 1]),
+        "every node process exited 0": rec["exit_codes"] == [0],
+        "every node process on the card": (
+            rec["children"]["cuda_available"] == [on_card]
+            and rec["children"]["device"] == want_dev
+            and [d.split(":")[0] for d in rec["children"]["stack_device"]] == want_dev
+            and rec["children"]["seam_devices"] == want_dev),
+        "ladder_window = 2 x merged jobs, no host fold, no other launch": not on_card or (
+            seams["jobs"] > 0 and not seams["host_folds"] and seams["folds"] == 2 * seams["jobs"]
+            and launches.get("ladder_window") == expected
+            and not any(v for k, v in launches.items() if k != "ladder_window")),
+        "every erasure product on the card": (
+            not erasure["native"]["calls"] and not erasure["numpy"]["calls"]
+            and erasure["device"]["calls"] > 0),
+    }
+    rec["journal_commits"] = {"nodes": len(commits),
+                              "per_node": sorted({len(c) for c in commits.values()}),
+                              "more_than_once": sum(1 for c in commits.values()
+                                                    for v in c.values() if v != 1),
+                              "never_offered": sum(len(set(c) - offered)
+                                                   for c in commits.values())}
+    failed = [name for name, ok in gates.items() if not ok]
+    if failed:
+        with open(log_path) as fh:
+            notes = [ln for ln in fh if "guard:" in ln or "Error" in ln]
+        sys.stderr.write("edge22: the record\n" + json.dumps(rec, default=str)[:20000]
+                         + "\nedge22: the nodes' guard and error lines (first 60)\n"
+                         + "".join(notes[:60]))
+        raise AssertionError(f"edge22: gates failed: {failed}")
+    return rec
+
+
+EDGE_SOCKET_CELLS = ("garbage-stream", "spoof-nokey")
+
+
+def edge_campaign(root: str, device: str = EDGE_DEVICE) -> dict:
+    """``edge22`` (d): the campaign on ``device`` at the reference's own cell
+    sizes: ``smoke_grid()``, the equivocator under loss, and one socket cell
+    each of ``garbage-stream`` and ``spoof-nokey``.  Gates as listed in the
+    module docstring; returns the record."""
+    from hbbft_tpu_torch.chaos import campaign as C
+
+    what = "edge22 (campaign)"
+    rec = {"seconds": {}}
+    t0 = time.perf_counter()
+    smoke = C.run_campaign(C.smoke_grid(), os.path.join(root, "smoke"), device=device)
+    rec["seconds"]["smoke"] = time.perf_counter() - t0
+    rec["smoke"] = {"verdicts": smoke["verdicts"], "errors": smoke["errors"],
+                    "stalled": smoke["stalled_cells"],
+                    "batches_min": [d.get("batches_min") for d in smoke["cells_detail"]]}
+    if smoke["verdicts"] != {"clean": len(C.smoke_grid())} or smoke["stalled_cells"]:
+        raise AssertionError(f"{what}: smoke grid {rec['smoke']}, triage {smoke['triage']}")
+    t0 = time.perf_counter()
+    spec = C.CellSpec(shape="lossy-1pct", adversary="equivocate", seed=0, crank_limit=60_000)
+    equiv = C.run_campaign([spec], os.path.join(root, "equivocate"), verify_nonclean=False,
+                           device=device)
+    rec["seconds"]["equivocate"] = time.perf_counter() - t0
+    tri = equiv["triage"]
+    rec["equivocate"] = {"verdicts": equiv["verdicts"],
+                         "triage": [{k: t[k] for k in ("faulty_nodes", "first_divergent_epoch",
+                                                       "kinds")} for t in tri]}
+    if equiv["verdicts"] != {"fault": 1} or len(tri) != 1 or tri[0]["faulty_nodes"] != ["3"] \
+            or tri[0]["first_divergent_epoch"] is None \
+            or C.CellSpec.from_dict(tri[0]["replay"]["spec"]) != spec:
+        raise AssertionError(f"{what}: equivocator under loss {rec['equivocate']}")
+    for adv in EDGE_SOCKET_CELLS:
+        t0 = time.perf_counter()
+        spec = C.CellSpec(kind="socket", shape="none", adversary=adv, n=4, seed=0,
+                          pipeline_depth=2)
+        detail, res = C.run_socket_cell(spec, os.path.join(root, adv), device=device)
+        rec["seconds"][adv] = time.perf_counter() - t0
+        guard = detail.get("guard", {})
+        cell = {"verdict": detail["verdict"], "batches_min": detail["batches_min"],
+                "commit_wall_s": detail["commit_wall_s"],
+                "attributed_to": detail.get("overload_attributed_to"),
+                "injector": guard.get("injector"),
+                "watch_incidents": (detail.get("watch") or {}).get("incidents")}
+        if adv.startswith("spoof-"):
+            cell.update(auth_refused=guard.get("auth_refused"),
+                        impersonated_peer_doc=guard.get("impersonated_peer_doc"))
+        rec[adv] = cell
+        ok = detail["verdict"] == "clean" and detail["batches_min"] >= 1
+        if adv == "garbage-stream":
+            ok = ok and guard["injector"]["frames_sent"] > 0 \
+                and detail["overload_attributed_to"] == ["3"]
+        else:
+            inj = guard["injector"]
+            attributed = detail["overload_attributed_to"]
+            ok = ok and inj["attempts"] > 0 and inj["hellos_accepted"] == 0 \
+                and guard["auth_refused"] >= inj["attempts"] \
+                and not guard["impersonated_peer_doc"].get("strikes") \
+                and not guard["impersonated_peer_doc"].get("decode_fails") \
+                and attributed and "3" not in attributed \
+                and all(":" in a for a in attributed)
+        if not ok:
+            raise AssertionError(f"{what}: socket cell {adv}: {cell}")
+    return rec
+
+
+def phase_edge22(ctx):
+    """The operator's edge on the card: 22 node processes behind a gateway
+    under open-loop load, the live view, the post-mortem, and the campaign
+    (module docstring, phase 22)."""
+    import tempfile
+
+    import torch
+
+    from hbbft_tpu_torch import _build
+
+    out = {"smi": ctx["smi"]}
+    with tempfile.TemporaryDirectory() as root, _erasure_backend("device"):
+        out["deployment"] = edge_deployment(os.path.join(root, "deployment"), smi=ctx["smi"],
+                                            keep=ctx["keep_journals"])
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out["campaign"] = edge_campaign(os.path.join(root, "campaign"))
+        torch.cuda.synchronize()
+        out["campaign"]["launches"] = dict(_build.LAUNCHES)
+    ctx["edge22_launches"] = out["deployment"]["launches"]
+    ctx["edge22_folds"] = out["deployment"]["seams"]["folds"]
+    ctx["campaign_launches"] = out["campaign"]["launches"]
+    return out
+
+
 def _mesh_epoch64(torch, mesh, nets, contribs):
     """The N = 64 epoch sharded over ``mesh`` and unsharded, on the same
     inputs: (sharded seconds by phase, unsharded ones, launches of the
@@ -3274,7 +3954,7 @@ def phase_kernels(ctx):
     sha = ctx["sha3"]["shapes"][ctx["sha3"]["main"]]
     sha_l = ctx["sha3"]["shapes"][ctx["sha3"]["main_n1024"]]
     sha_x = ctx["sha3"]["shapes"][ctx["sha3"]["main_n4096"]]
-    lad, lad_l = ctx["ladder"], ctx["ladder"]["n1024"]
+    lad = ctx["ladder"]
     launches, launches_l = ctx["launches"], ctx["launches_n1024"]
     launches_x, launches_s = ctx["launches_n4096"], ctx["launches_sustained4096"]
     win = ctx["window"]
@@ -3318,6 +3998,8 @@ def phase_kernels(ctx):
             "objsim22": {"launches": ctx["objsim_launches"]["fp_mul_lazy"]},
             "vidsim22": {"launches": ctx["vidsim_launches"]["fp_mul_lazy"]},
             "netsim22": {"launches": ctx["netsim_launches"]["fp_mul_lazy"]},
+            "edge22": {"launches": ctx["edge22_launches"].get("fp_mul_lazy", 0)},
+            "campaign": {"launches": ctx["campaign_launches"]["fp_mul_lazy"]},
         },
         {
             "name": "sha3_256", "route": "cuda",
@@ -3347,6 +4029,10 @@ def phase_kernels(ctx):
                          "run": "object mode hashes its Merkle trees on the host"},
             "netsim22": {"launches": ctx["netsim_launches"]["sha3_256"],
                          "run": "the node runtime hashes its Merkle trees on the host"},
+            "edge22": {"launches": ctx["edge22_launches"].get("sha3_256", 0),
+                       "run": "the node processes hash their Merkle trees on the host"},
+            "campaign": {"launches": ctx["campaign_launches"]["sha3_256"],
+                         "run": "the campaign's cells hash their Merkle trees on the host"},
         },
         {
             "name": "ladder_lazy", "route": "cuda",
@@ -3363,14 +4049,13 @@ def phase_kernels(ctx):
             "shape": "the N = 64 epoch's encrypt shapes summed (no path runs this kernel): "
                      "G1 {g1} rows + G2 {g2} rows, {bits} bits".format(bits=LADDER_BITS,
                                                                        **lad["rows"]),
-            "n1024": {"launches": launches_l["ladder_lazy"], **times(lad_l),
-                      "ms_by_group": lad_l["ms_by_group"],
-                      "shape": "G1 {g1} rows + G2 {g2} rows, {bits} bits, summed".format(
-                          bits=LADDER_BITS, **lad_l["rows"])},
+            "n1024": {"launches": launches_l["ladder_lazy"]},
             "n4096": {"launches": launches_x["ladder_lazy"]},
             "objsim22": {"launches": ctx["objsim_launches"]["ladder_lazy"]},
             "vidsim22": {"launches": ctx["vidsim_launches"]["ladder_lazy"]},
             "netsim22": {"launches": ctx["netsim_launches"]["ladder_lazy"]},
+            "edge22": {"launches": ctx["edge22_launches"].get("ladder_lazy", 0)},
+            "campaign": {"launches": ctx["campaign_launches"]["ladder_lazy"]},
         },
         {
             "name": "ladder_window", "route": "cuda",
@@ -3409,6 +4094,13 @@ def phase_kernels(ctx):
                          "device_folds": ctx["netsim_folds"],
                          "run": "the classic and the VID node runtime over localhost TCP at "
                                 "N = 22: two launches a merged share-set job"},
+            "edge22": {"launches": ctx["edge22_launches"].get("ladder_window", 0),
+                       "device_folds": ctx["edge22_folds"],
+                       "run": "22 node processes behind a gateway, summed over the "
+                              "processes: two launches a merged share-set job"},
+            "campaign": {"launches": ctx["campaign_launches"]["ladder_window"],
+                         "run": "smoke_grid, the equivocator under loss and two socket "
+                                "cells, encryption off: no share-set fold"},
         },
     ]
     return {"kernels": kernels}
@@ -3417,11 +4109,13 @@ def phase_kernels(ctx):
 def _parse_args(argv, names):
     """``--phases a,b``: run only those phases (``build`` first), with no
     ``kernels`` line; no ``--phases``: every phase.  ``--dhb-n N``: the
-    ``dhb`` phase at N validators (default DHB_N).  Returns (phases or
-    None, dhb N)."""
-    usage = "usage: chip_smoke.py [--phases name,name,...] [--dhb-n N]"
+    ``dhb`` phase at N validators (default DHB_N).  ``--keep-journals
+    DIR``: ``edge22`` keeps the first segment of each node's journal in
+    DIR.  Returns (phases or None, dhb N, journal directory or "")."""
+    usage = ("usage: chip_smoke.py [--phases name,name,...] [--dhb-n N] "
+             "[--keep-journals DIR]")
     opts = dict(zip(argv[::2], argv[1::2]))
-    if len(argv) % 2 or set(opts) - {"--phases", "--dhb-n"}:
+    if len(argv) % 2 or set(opts) - {"--phases", "--dhb-n", "--keep-journals"}:
         raise SystemExit(usage)
     only = None
     if "--phases" in opts:
@@ -3429,7 +4123,7 @@ def _parse_args(argv, names):
         if only - set(names):
             raise SystemExit(f"unknown phases {sorted(only - set(names))}; phases: {names}")
         only |= {"build"}
-    return only, int(opts.get("--dhb-n", DHB_N))
+    return only, int(opts.get("--dhb-n", DHB_N)), opts.get("--keep-journals", "")
 
 
 def main() -> int:
@@ -3477,8 +4171,9 @@ def main() -> int:
               ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
               ("epoch4096", phase_epoch4096), ("sustained4096", phase_sustained4096),
               ("mesh", phase_mesh), ("coin256", phase_coin256), ("dkg256", phase_dkg256), ("dhb", phase_dhb),
-              ("objsim", phase_objsim), ("vidsim", phase_vidsim), ("netsim", phase_netsim)]
-    only, ctx["dhb_n"] = _parse_args(sys.argv[1:], [n for n, _ in phases])
+              ("objsim", phase_objsim), ("vidsim", phase_vidsim), ("netsim", phase_netsim),
+              ("edge22", phase_edge22)]
+    only, ctx["dhb_n"], ctx["keep_journals"] = _parse_args(sys.argv[1:], [n for n, _ in phases])
     ok = True
     for name, fn in phases:
         if only and name not in only:
@@ -3506,4 +4201,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--edge-node"]:
+        sys.exit(_edge_node(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

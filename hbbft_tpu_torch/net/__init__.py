@@ -24,7 +24,11 @@ The port's copy of the JAX package's ``net/``.  Layering (bottom up):
   (``python -m hbbft_tpu_torch.net.cluster``), with a ``device`` (default
   ``"cuda"``, raising without a card).
 
-The reference's ``gateway`` and ``loadgen`` are not ported yet.
+Beside the layers, at the operator's edge:
+:mod:`~hbbft_tpu_torch.net.gateway` terminates client connections off the
+consensus path and multiplexes them into a few authenticated node links;
+:mod:`~hbbft_tpu_torch.net.loadgen` offers open-loop load to nodes or
+gateways.
 """
 
 from hbbft_tpu_torch.net.client import ClusterClient, Mempool

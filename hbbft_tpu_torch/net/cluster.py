@@ -11,7 +11,9 @@ Two drivers share the builders:
   ports (real sockets, one process): the harness of the tests and of
   ``chip_smoke.py``'s ``netsim`` phase;
 - :func:`spawn_node` / ``python -m hbbft_tpu_torch.net.cluster --node-id I …`` —
-  one OS process per node on ``base_port + i``: the deployment shape.
+  one OS process per node on ``base_port + i``: the deployment shape, which
+  :func:`spawn_cluster` (``python -m hbbft_tpu_torch.cluster_launch``)
+  starts whole.
 
 Every node's device work runs on ``ClusterConfig.device`` (default
 ``"cuda"``): without a card the builders, ``LocalCluster``, ``spawn_node``
@@ -25,6 +27,8 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
+import errno
 import json
 import os
 import random
@@ -698,6 +702,10 @@ def node_command(cfg: ClusterConfig, nid: int) -> List[str]:
         cmd += ["--pipeline-depth", str(cfg.pipeline_depth)]
     if cfg.device != "cuda":
         cmd += ["--device", cfg.device]
+    if cfg.heartbeat_s != 0.5:
+        cmd += ["--heartbeat-s", str(cfg.heartbeat_s)]
+    if cfg.dead_after_s != 3.0:
+        cmd += ["--dead-after-s", str(cfg.dead_after_s)]
     if cfg.link_delays:
         cmd += ["--link-delays", cfg.link_delays]
     if cfg.chaos:
@@ -739,6 +747,73 @@ def spawn_node(cfg: ClusterConfig, nid: int, *, join: bool = False,
     )))
     cmd = join_command(cfg, nid) if join else node_command(cfg, nid)
     return subprocess.Popen(cmd, env=env, cwd=cwd, **popen_kwargs)
+
+
+@contextlib.contextmanager
+def hold_ports(host: str, ports):
+    """Keep ``ports`` bound (``SO_REUSEADDR``, not listening) while the
+    block runs.  A child's listener still binds them (asyncio sets
+    ``SO_REUSEADDR`` too), but no outgoing connection is given one as its
+    local port meanwhile — where the kernel's ephemeral port range covers
+    the cluster's fixed ports, the first nodes' dials could otherwise take
+    a later node's port before that node binds it."""
+    socks = []
+    try:
+        for port in ports:
+            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            socks.append(s)
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind((host, port))
+        yield
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _listening(host: str, port: int) -> bool:
+    """Whether a socket listens on ``(host, port)``, found without
+    connecting to it (a bare connection to a node port is journaled as a
+    refused hello): an ``SO_REUSEADDR`` bind is refused only where a
+    socket listens, and :func:`hold_ports`' sockets do not."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            s.bind((host, port))
+        except OSError as exc:
+            return exc.errno == errno.EADDRINUSE
+    return False
+
+
+def wait_listening(addrs, procs, timeout_s: float) -> None:
+    """Until every address has a listener or its process has exited, at
+    most ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    for (host, port), proc in zip(addrs, procs):
+        while proc.poll() is None and time.monotonic() < deadline \
+                and not _listening(host, port):
+            time.sleep(0.2)
+
+
+def spawn_cluster(cfg: ClusterConfig, boot_timeout_s: float = 300.0,
+                  **popen_kwargs) -> Dict[int, subprocess.Popen]:
+    """Every node of ``cfg`` as a child process (:func:`spawn_node`).  On a
+    CUDA device the kernels are built here first, once: children that
+    found them stale would each start one ``nvcc`` a kernel, all at once.
+    The node ports, and the obs ports where there are any, stay held
+    (:func:`hold_ports`) until each has its node's listener or the node
+    has exited, at most ``boot_timeout_s``."""
+    if resolve_device(cfg.device).type == "cuda":
+        from hbbft_tpu_torch import _build
+
+        _build.build_all()
+    addrs = [cfg.addr(nid) for nid in range(cfg.n)]
+    if cfg.metrics_base_port:
+        addrs += [cfg.metrics_addr(nid) for nid in range(cfg.n)]
+    with hold_ports(cfg.host, [p for _h, p in addrs]):
+        procs = {nid: spawn_node(cfg, nid, **popen_kwargs) for nid in range(cfg.n)}
+        owners = list(procs.values()) * (len(addrs) // cfg.n)
+        wait_listening(addrs, owners, boot_timeout_s)
+    return procs
 
 
 async def connect_when_up(cfg: ClusterConfig, nid: int, *,
@@ -951,6 +1026,11 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="torch device of the node's device work (default "
                          "cuda; raises without a card — pass cpu to run "
                          "the plain PyTorch versions)")
+    ap.add_argument("--heartbeat-s", type=float, default=0.5,
+                    help="seconds between pings on an idle peer link")
+    ap.add_argument("--dead-after-s", type=float, default=3.0,
+                    help="silence after which a peer link is declared "
+                         "dead and redialed (also the handshake's wait)")
     ap.add_argument("--link-delays", default="",
                     help="outbound link shaping, SRC>DST:SECONDS[,…] "
                          "(only entries whose SRC is this node apply)")
@@ -1013,6 +1093,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         n=args.nodes, seed=args.seed, base_port=args.base_port,
         batch_size=args.batch_size, max_tx_bytes=args.max_tx_bytes,
         encrypt=args.encrypt, vid=args.vid,
+        heartbeat_s=args.heartbeat_s, dead_after_s=args.dead_after_s,
         flight_dir=args.flight_dir, pipeline_depth=args.pipeline_depth,
         link_delays=args.link_delays,
         chaos=args.chaos, chaos_seed=args.chaos_seed,

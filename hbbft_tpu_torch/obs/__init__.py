@@ -22,8 +22,18 @@ touches the card):
 - :mod:`hbbft_tpu_torch.obs.perf` — the performance plane: per-layer
   utilization and headroom from the pump's segment timers.
 
-The reference's analysis tools over these journals (``audit``,
-``audit_stream``, ``critpath``, ``top``, ``watch``) are not ported yet.
+and the operator's tools over it:
+
+- :mod:`hbbft_tpu_torch.obs.audit` (over :mod:`~hbbft_tpu_torch.obs.
+  audit_stream`) — ``python -m hbbft_tpu_torch.obs.audit``, the cross-node
+  forensic auditor: merged causal timeline, digest-chain agreement,
+  first-divergent-epoch fork reports, equivocation evidence keyed to
+  ``FaultKind``;
+- :mod:`hbbft_tpu_torch.obs.critpath` — per-transaction critical paths
+  from the journals, components summing exactly to each total;
+- :mod:`hbbft_tpu_torch.obs.top` — a curses-free live cluster view;
+- :mod:`hbbft_tpu_torch.obs.watch` — the anomaly watchtower: scrapes and
+  journal tails through the streaming auditor, one incident an episode.
 """
 
 from hbbft_tpu_torch.obs.flight import FlightObserver, FlightRecorder

@@ -8,8 +8,8 @@ The port's copy of the JAX package's ``sim/adversary.py``: the base class,
 the schedulers (null, node order, reordering, MITM delay, random), the
 equivocating proposer and the network-level zoo (targeted delay,
 censorship, eclipse, vote storms, flood, replay-as-spoof, future-epoch spam,
-crash at epoch).  The two socket-level adversaries (garbage streams and
-identity spoofing) wait for the port's ``net/``.
+crash at epoch) and the two socket-level adversaries that drive a real
+node over ``net/framing`` (garbage streams and identity spoofing).
 """
 
 from __future__ import annotations
@@ -586,6 +586,278 @@ class FutureEpochSpamAdversary(Adversary):
                 net.queue.append(
                     NetworkMessage(self.spammer, victim, payload))
                 self.injected += 1
+
+
+class GarbageStreamAdversary:
+    """Framing-valid, decode-invalid byte streams against a REAL node.
+
+    The socket-kind sibling of :class:`FloodAdversary`: it dials a live
+    node's port, completes a node-role hello under a CLAIMED validator
+    identity (the transport's documented trust boundary — identification,
+    not authentication), then streams MSG frames whose payloads are
+    seeded random bytes — every frame passes the length-prefix framing
+    layer, every payload fails ``wire.decode_message``.  The victim must
+    count each one (``decode_failures`` + guard decode strikes), keep
+    committing, and eventually disconnect the stream with a counted
+    backoff (``hbbft_guard_ingress_disconnects_total``), which this
+    driver observes as connection resets.
+
+    With ``valid_frames=True`` the payloads are instead well-formed
+    ``EpochStarted`` announcements — max-rate VALID-frame spam, the
+    socket realization of :class:`FloodAdversary`: the byte budget and
+    in-flight frame caps are then the only defense that can engage.
+    """
+
+    def __init__(self, seed: int = 0, budget_frames: int = 20_000,
+                 frame_bytes: int = 256, valid_frames: bool = False,
+                 secret_key=None):
+        self.rng = random.Random(seed)
+        self.budget_frames = budget_frames
+        self.frame_bytes = frame_bytes
+        self.valid_frames = valid_frames
+        # the claimed identity's plain BLS secret key: with it, the
+        # drill models a COMPROMISED validator — the handshake
+        # challenge is answered correctly and the flood proceeds past
+        # an authenticating victim; without it, an auth-enabled victim
+        # refuses the hello outright (that refusal is
+        # IdentitySpoofAdversary's drill, not this one's)
+        self.secret_key = secret_key
+        self.frames_sent = 0
+        self.bytes_sent = 0
+        # connection teardowns observed, INCLUDING hellos refused
+        # during the victim's guard backoff window (a refused hello
+        # surfaces as the socket closing before any reply — the
+        # victim-side hbbft_guard_hello_rejects_total counter is the
+        # authoritative per-cause ledger)
+        self.disconnects = 0
+
+    def _frame(self) -> bytes:
+        from hbbft_tpu_torch.net import framing
+
+        if self.valid_frames:
+            if not hasattr(self, "_valid_frame"):
+                from hbbft_tpu_torch.protocols import wire
+                from hbbft_tpu_torch.protocols.sender_queue import EpochStarted
+
+                # one MSG_BATCH frame carrying hundreds of well-formed
+                # EpochStarted announcements: a single socket write
+                # floods the victim with valid frames faster than the
+                # write path alone ever could
+                enc = wire.encode_message(EpochStarted((0, 0)))
+                self._valid_frame = framing.pack_msgs(
+                    [enc] * 512, framing.DEFAULT_MAX_FRAME)[0]
+            return self._valid_frame
+        return framing.encode_frame(
+            framing.MSG,
+            bytes(self.rng.randrange(256)
+                  for _ in range(self.frame_bytes)),
+            framing.DEFAULT_MAX_FRAME)
+
+    async def run(self, addr, cluster_id: bytes, identity,
+                  duration_s: float = 10.0, era: int = 0) -> None:
+        """Flood ``addr`` claiming ``identity`` until the frame budget
+        or ``duration_s`` runs out, reconnecting through disconnects."""
+        import asyncio
+        import time as _time
+
+        from hbbft_tpu_torch.net import framing
+
+        deadline = _time.monotonic() + duration_s
+        while (self.frames_sent < self.budget_frames
+               and _time.monotonic() < deadline):
+            try:
+                reader, writer = await asyncio.wait_for(
+                    asyncio.open_connection(*addr), 2.0)
+            except (OSError, asyncio.TimeoutError):
+                await asyncio.sleep(0.05)
+                continue
+            try:
+                hello = framing.Hello(
+                    node_id=identity, role=framing.ROLE_NODE,
+                    cluster_id=bytes(cluster_id), era=era, epoch=0)
+                writer.write(framing.encode_frame(
+                    framing.HELLO, framing.encode_hello(hello),
+                    framing.DEFAULT_MAX_FRAME))
+                await writer.drain()
+                kind, payload = await asyncio.wait_for(
+                    framing.read_one_frame(
+                        reader, framing.DEFAULT_MAX_FRAME), 2.0)
+                if kind == framing.CHALLENGE:
+                    # authenticated victim: with the compromised key the
+                    # challenge is answered properly (the flood drill
+                    # continues past the handshake); without it this
+                    # connection is already lost — surface the refusal
+                    if self.secret_key is None:
+                        raise ConnectionError(
+                            "victim demands auth and no key was given")
+                    nonce, session = framing.decode_challenge(payload)
+                    transcript = framing.auth_transcript(
+                        bytes(cluster_id), nonce, session, identity,
+                        framing.ROLE_NODE, era)
+                    sig = self.secret_key.sign(transcript).to_bytes()
+                    writer.write(framing.encode_frame(
+                        framing.AUTH, framing.encode_auth(era, sig),
+                        framing.DEFAULT_MAX_FRAME))
+                    await writer.drain()
+                    kind, payload = await asyncio.wait_for(
+                        framing.read_one_frame(
+                            reader, framing.DEFAULT_MAX_FRAME), 2.0)
+                if kind != framing.HELLO:
+                    raise ConnectionError(
+                        f"unexpected reply kind {kind}")
+                while (self.frames_sent < self.budget_frames
+                       and _time.monotonic() < deadline):
+                    if writer.is_closing():
+                        raise ConnectionError("stream torn down")
+                    frame = self._frame()
+                    writer.write(frame)
+                    self.frames_sent += 1
+                    self.bytes_sent += len(frame)
+                    if self.frames_sent % 16 == 0:
+                        await asyncio.wait_for(writer.drain(), 5.0)
+            except (OSError, asyncio.TimeoutError,
+                    asyncio.IncompleteReadError, ConnectionError):
+                # the guard tore the stream down (or refused the hello
+                # during its backoff window): the defense engaging IS
+                # the observable — count it and press on
+                self.disconnects += 1
+                await asyncio.sleep(0.1)
+            finally:
+                writer.close()
+
+
+class IdentitySpoofAdversary:
+    """Raw-socket identity theft against an AUTHENTICATED node.
+
+    Dials a live node's port claiming a CORRECT validator identity in
+    the hello, then fails the challenge–response in one of four ways:
+
+    - ``nokey``: answers the CHALLENGE with seeded random bytes where
+      the era-key signature belongs (an attacker holding no key
+      material at all);
+    - ``wrongkey``: signs the exact transcript with a DIFFERENT secret
+      key (compromised non-validator key trying to impersonate);
+    - ``hijack``: skips AUTH entirely and streams a protocol MSG frame
+      in its place (inject-before-the-challenge-completes, the
+      session-hijack shape);
+    - ``downgrade``: signs with the wrong key while claiming an
+      ancient era (an era-downgrade probe at the rotation grace
+      window).
+
+    The victim must refuse every attempt BEFORE allocating any
+    per-peer state: zero spoofed frames reach the protocol, the
+    impersonated validator's budgets/strikes stay untouched, and every
+    refusal is counted (``hbbft_guard_auth_failures_total``) and
+    journaled with the ATTACKER's endpoint — never the victim's.  From
+    outside, a refusal is the stream closing without a hello reply;
+    ``hellos_accepted`` staying 0 is the spoof-proof acceptance
+    criterion this driver can observe directly.
+    """
+
+    MODES = ("nokey", "wrongkey", "hijack", "downgrade")
+
+    def __init__(self, seed: int = 0, mode: str = "nokey",
+                 secret_key=None, claim_era: int = 0,
+                 budget_attempts: int = 40):
+        if mode not in self.MODES:
+            raise ValueError(f"unknown spoof mode {mode!r}")
+        if mode in ("wrongkey", "downgrade") and secret_key is None:
+            raise ValueError(f"mode {mode!r} needs a (wrong) secret_key")
+        self.rng = random.Random(seed)
+        self.mode = mode
+        self.secret_key = secret_key
+        self.claim_era = claim_era
+        self.budget_attempts = budget_attempts
+        self.attempts = 0
+        #: refusals observed (stream closed / no hello reply) — the
+        #: defense engaging, seen from the attacker's side
+        self.refusals = 0
+        #: spoofed hellos the victim ACCEPTED — must stay 0
+        self.hellos_accepted = 0
+
+    def _auth_payload(self, cluster_id: bytes, nonce: bytes,
+                      session: bytes, identity) -> bytes:
+        from hbbft_tpu_torch.net import framing
+
+        era = self.claim_era
+        if self.secret_key is not None:
+            transcript = framing.auth_transcript(
+                bytes(cluster_id), nonce, session, identity,
+                framing.ROLE_NODE, era)
+            sig = self.secret_key.sign(transcript).to_bytes()
+        else:
+            sig = bytes(self.rng.randrange(256) for _ in range(96))
+        return framing.encode_auth(era, sig)
+
+    async def run(self, addr, cluster_id: bytes, identity,
+                  duration_s: float = 5.0) -> None:
+        """Spoof ``identity`` at ``addr`` until the attempt budget or
+        ``duration_s`` runs out; every refusal feeds the next try."""
+        import asyncio
+        import time as _time
+
+        from hbbft_tpu_torch.net import framing
+
+        deadline = _time.monotonic() + duration_s
+        while (self.attempts < self.budget_attempts
+               and _time.monotonic() < deadline):
+            try:
+                reader, writer = await asyncio.wait_for(
+                    asyncio.open_connection(*addr), 2.0)
+            except (OSError, asyncio.TimeoutError):
+                await asyncio.sleep(0.05)
+                continue
+            self.attempts += 1
+            try:
+                hello = framing.Hello(
+                    node_id=identity, role=framing.ROLE_NODE,
+                    cluster_id=bytes(cluster_id), era=self.claim_era,
+                    epoch=0)
+                writer.write(framing.encode_frame(
+                    framing.HELLO, framing.encode_hello(hello),
+                    framing.DEFAULT_MAX_FRAME))
+                await writer.drain()
+                kind, payload = await asyncio.wait_for(
+                    framing.read_one_frame(
+                        reader, framing.DEFAULT_MAX_FRAME), 2.0)
+                if kind == framing.HELLO:
+                    # unauthenticated victim took the spoof at face
+                    # value — the exact hole this drill exists to catch
+                    self.hellos_accepted += 1
+                    continue
+                if kind != framing.CHALLENGE:
+                    raise ConnectionError(
+                        f"unexpected reply kind {kind}")
+                nonce, session = framing.decode_challenge(payload)
+                if self.mode == "hijack":
+                    # stream a protocol frame where AUTH belongs: the
+                    # victim must refuse it unparsed (no_auth), not
+                    # feed it to the protocol
+                    writer.write(framing.encode_frame(
+                        framing.MSG,
+                        bytes(self.rng.randrange(256)
+                              for _ in range(64)),
+                        framing.DEFAULT_MAX_FRAME))
+                else:
+                    writer.write(framing.encode_frame(
+                        framing.AUTH,
+                        self._auth_payload(cluster_id, nonce, session,
+                                           identity),
+                        framing.DEFAULT_MAX_FRAME))
+                await writer.drain()
+                kind, _ = await asyncio.wait_for(
+                    framing.read_one_frame(
+                        reader, framing.DEFAULT_MAX_FRAME), 2.0)
+                if kind == framing.HELLO:
+                    self.hellos_accepted += 1
+            except (OSError, asyncio.TimeoutError,
+                    asyncio.IncompleteReadError, ConnectionError,
+                    framing.FrameError):
+                # refused before the hello reply: the defense held
+                self.refusals += 1
+                await asyncio.sleep(0.02)
+            finally:
+                writer.close()
 
 
 class CrashAtEpochAdversary(Adversary):

@@ -9,8 +9,8 @@ and on its consensus port (the reference's stop waits on such a connection
 for ever).  A spy shows that the pump hands its merged share-set jobs to
 ``verify_dec_share_sets`` on the cluster's device.  A ``NodeRuntime`` of
 each package built from the same ``ClusterConfig`` registers the same
-metric names.  Every scenario runs under ``asyncio.wait_for`` with a 30 s
-budget.
+metric names.  A port that ``hold_ports`` holds still binds in a child.
+Every scenario runs under ``asyncio.wait_for`` with a 30 s budget.
 """
 
 import asyncio
@@ -158,3 +158,52 @@ def test_runtime_takes_the_stack_device(tmp_path):
         assert rt.sq.algo.dhb.hb.defer_decrypt  # the pump's deferred seam is on
     finally:
         rt.pump._executor.shutdown(wait=True)
+
+
+def test_listener_found_by_a_bind_not_a_connection():
+    """``wait_listening`` finds a held port's listener without connecting
+    to it (a bare connection to a node port is journaled as a refused
+    hello)."""
+    from hbbft_tpu_torch.net.cluster import _listening, find_free_base_port, hold_ports
+
+    port = find_free_base_port(1)
+    with hold_ports("127.0.0.1", [port]):
+        assert not _listening("127.0.0.1", port)
+        with socket.socket() as srv:
+            srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            srv.bind(("127.0.0.1", port))
+            assert not _listening("127.0.0.1", port)  # bound, not listening
+            srv.listen()
+            assert _listening("127.0.0.1", port)
+            srv.setblocking(False)
+            with pytest.raises(BlockingIOError):
+                srv.accept()  # the probe opened no connection
+
+
+def test_held_ports_still_bind_in_a_child():
+    """``hold_ports`` keeps a cluster's fixed ports bound while its nodes
+    boot (no outgoing connection can take one as its local port), and a
+    child process's listener still binds and serves a held port;
+    ``wait_listening`` returns once it does."""
+    import subprocess
+    import sys
+
+    from hbbft_tpu_torch.net.cluster import find_free_base_port, hold_ports, wait_listening
+
+    port = find_free_base_port(1)
+    child = ("import asyncio\n"
+             "async def main():\n"
+             f"    await asyncio.start_server(lambda r, w: w.close(), '127.0.0.1', {port})\n"
+             "    await asyncio.sleep(5)\n"
+             "asyncio.run(main())\n")
+    with hold_ports("127.0.0.1", [port]):
+        with socket.socket() as other, pytest.raises(OSError):
+            other.bind(("127.0.0.1", port))  # held: a plain bind is refused
+        proc = subprocess.Popen([sys.executable, "-c", child])
+        try:
+            wait_listening([("127.0.0.1", port)], [proc], BUDGET_S)
+            assert proc.poll() is None
+            socket.create_connection(("127.0.0.1", port), timeout=2.0).close()
+        finally:
+            proc.kill()
+            proc.wait(timeout=BUDGET_S)

@@ -3,7 +3,9 @@ JAX package, and its entry points do not fall back to the CPU on their
 own when no card is present."""
 
 import ast
+import json
 import pathlib
+import re
 
 import pytest
 import torch
@@ -35,6 +37,13 @@ NET_OBS_FILES = [ROOT / "hbbft_tpu_torch" / rel for rel in (
     "net/framing.py", "net/ingress.py", "net/transport.py", "net/scheduler.py",
     "net/client.py", "net/degrade.py", "net/statesync.py", "net/runtime.py",
     "net/cluster.py")]
+
+# the operator's edge and toolkit: gateway, load generator, launcher, the
+# socket adversaries, the post-mortem and live tools, the campaign
+EDGE_FILES = [ROOT / "hbbft_tpu_torch" / rel for rel in (
+    "sim/adversary.py", "net/gateway.py", "net/loadgen.py", "cluster_launch.py",
+    "obs/audit_stream.py", "obs/audit.py", "obs/critpath.py", "obs/top.py",
+    "obs/watch.py", "chaos/campaign.py")]
 
 
 def _imported_roots(path):
@@ -74,6 +83,63 @@ def test_node_stack_modules_are_held_to_the_import_rule(path):
                          ids=lambda p: str(p.relative_to(ROOT / "hbbft_tpu_torch")))
 def test_net_and_obs_modules_are_held_to_the_import_rule(path):
     assert path in PORT_FILES
+
+
+@pytest.mark.parametrize("path", EDGE_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT / "hbbft_tpu_torch")))
+def test_edge_and_toolkit_modules_are_held_to_the_import_rule(path):
+    assert path in PORT_FILES
+
+
+_SPAWNS_REFERENCE = re.compile(r"-m\s+hbbft_tpu\.")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_spawns_no_module_of_the_jax_package(path):
+    """No command line the port builds names a ``hbbft_tpu.`` module: not as
+    ``"-m", "hbbft_tpu...."`` list items, not inside one string."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.List):
+            items = [e.value if isinstance(e, ast.Constant) else None for e in node.elts]
+            for a, b in zip(items, items[1:]):
+                assert not (a == "-m" and isinstance(b, str) and b.startswith("hbbft_tpu.")), \
+                    f"{path.name}:{node.lineno} spawns {b}"
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert not _SPAWNS_REFERENCE.search(node.value), f"{path.name}:{node.lineno}"
+
+
+def test_edge_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    """The multi-process launcher, ``loadgen --spawn``, ``spawn_cluster`` and
+    the campaign's runners and CLI default to ``cuda`` and raise without a
+    card, before any node or cell starts."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from hbbft_tpu_torch import cluster_launch
+    from hbbft_tpu_torch.chaos import campaign
+    from hbbft_tpu_torch.net import cluster, loadgen
+
+    args = cluster_launch.parse_args(["--flight-dir", "off"])
+    assert args.device == "cuda" and cluster_launch.build_config(args).device == "cuda"
+    sim = campaign.smoke_grid()[0]
+    sock = campaign.CellSpec(kind="socket", adversary="garbage-stream", pipeline_depth=2)
+    churn = campaign.CellSpec(kind="churn")
+    root = str(tmp_path)
+    for make in (
+        lambda: cluster_launch.main(["--nodes", "4", "--flight-dir", "off"]),
+        lambda: cluster.spawn_cluster(cluster.ClusterConfig(n=4, base_port=23000)),
+        lambda: loadgen.main(["--spawn", "--n", "4"]),
+        lambda: campaign.run_cell(sim, root),
+        lambda: campaign.run_churn_cell(churn, root),
+        lambda: campaign.run_socket_cell(sock, root),
+        lambda: campaign.run_campaign([sim], root),
+        lambda: campaign.main(["--grid", "smoke", "--journal-root", root]),
+        lambda: campaign.main(["--replay", json.dumps(sim.as_dict()), "--journal-root", root]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    detail, _res = campaign.run_cell(sim, str(tmp_path / "cpu"), device="cpu")
+    assert detail["verdict"] == "clean"
 
 
 def test_cluster_entry_points_default_to_cuda_and_raise_without_it():
