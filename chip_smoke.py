@@ -4,6 +4,7 @@ on one NVIDIA card.
 
     python3 chip_smoke.py            # build, kernel checks, epochs, drivers, mesh, coin256, dkg256
     python3 chip_smoke.py --phases kernel_field,kernel_ladder_window   # those (and build)
+    python3 chip_smoke.py --phases lint   # the port's static analysis (and build)
     python3 chip_smoke.py --phases qhb64,dhb --dhb-n 16   # the drivers; dhb at N = 16
     python3 chip_smoke.py --phases epoch4096,sustained4096   # BASELINE config 5
     python3 chip_smoke.py --phases objsim   # object mode: the simulation CLI
@@ -17,21 +18,24 @@ Phases, one JSON line each; any failure exits non-zero:
 1. ``build``: nvcc builds the four kernels from ``hbbft_tpu_torch/csrc``
    for sm_90a (one nvcc per source, started together) while the native BLS
    oracle builds beside them.
-2. ``kernel_field``: the lazy field at K = 1, 2 and 4 elements a warp
+2. ``lint``: the port's static analysis, ``python -m hbbft_tpu_torch.lint
+   --json``, over the tree as shipped (the package and this file): no
+   finding and no stale baseline entry; its counts and seconds.  No kernel.
+3. ``kernel_field``: the lazy field at K = 1, 2 and 4 elements a warp
    (``fp_lazy.cuh``, through the probe kernel of ``ladder_window.cu``, on
    no path) digit-exact against the plain field at 37 and 4 096 rows; a
    warp's latency of a chained MUL, ADD and SUB at each K; the SASS
    instructions of each (``cuobjdump -sass``).
-3. ``kernel_fp_mul_lazy``: Kernel 1 (the warp-per-row lazy multiply)
+4. ``kernel_fp_mul_lazy``: Kernel 1 (the warp-per-row lazy multiply)
    against its plain PyTorch version on the card, digit-exact, at 1, 63,
    128, 256, 384 and 8192 rows.
-4. ``kernel_sha3``: Kernel 2 against its plain version and hashlib,
+5. ``kernel_sha3``: Kernel 2 against its plain version and hashlib,
    byte-exact, over message lengths 0 … 64 KiB and batches up to 4097,
    including the epochs' own shapes (at N = 64 4096 Merkle leaves of one
    shard each and 2048 interior pairs of 64 bytes; the leaves of one
    64-proposer chunk: 65 536 at N = 1024, 262 144 of 2 bytes at N = 4096),
    timed there by CUDA events and by the profiler's device time per launch.
-5. ``kernel_ladder``: the bitwise whole-ladder kernel against the plain
+6. ``kernel_ladder``: the bitwise whole-ladder kernel against the plain
    stepwise ladder on the card (plain multiply, no kernel), digit-exact and
    inf-exact, at the N = 64 epoch's encrypt shapes (G1 256 rows, G2 128
    rows; 132 bits) with edge rows (a zero scalar, all-ones bits, base_inf
@@ -39,7 +43,7 @@ Phases, one JSON line each; any failure exits non-zero:
    of each shape; each shape timed.  No path runs this kernel now (the
    windowed one was faster at every size measured); it stays held against
    its plain version.
-6. ``kernel_ladder_window``: the 4-bit windowed kernel, the one every path
+7. ``kernel_ladder_window``: the 4-bit windowed kernel, the one every path
    runs, against its plain version, digit- and inf-exact, at G1 256 / 37 /
    4 096 / 16 384 / 16 rows (N = 64 and coin256, ragged, N = 1024 and
    4096, dkg256's forced device route, objsim's share-set fold) and G2 128
@@ -48,38 +52,38 @@ Phases, one JSON line each; any failure exits non-zero:
    edge rows, three rows each against the native oracle; timed with its
    bound, the K it runs at, its registers, spilled bytes, blocks an SM and
    the SASS instructions of a lazy operation at that K.
-7. ``ladder_crossover``: both ladder kernels at 128 … 65 536 rows, G1 and
+8. ``ladder_crossover``: both ladder kernels at 128 … 65 536 rows, G1 and
    G2, ms of one launch each by CUDA events, the windowed one also at each
    K beside the K it picks (every K's result equal): why every dispatch
    runs the windowed kernel, and at which K.
-8. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
+9. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
    contributions) with the TPKE encrypt ladders on the card: a warm run
    whose ciphertexts are held against the native oracle's, then 5 timed
    runs, each with every kernel's launch counter reset just before it and
    read just after (2 windowed ladder launches, SHA3 21, Kernel 1 none).
-9. ``profile``: the device's busy share (kernel time from torch.profiler
+10. ``profile``: the device's busy share (kernel time from torch.profiler
    over wall time) and kernel launches, over the whole encrypt phase and
    over ACS + decrypt.
-10. ``qhb64``: ``BatchedQueueingHoneyBadger`` at N = 64, 256 transactions
+11. ``qhb64``: ``BatchedQueueingHoneyBadger`` at N = 64, 256 transactions
    of 250 B a node an epoch (65 028-byte contributions) from a queue of
    1 024 of its own, device encrypt route: 8 ``run_epochs_pipelined``
    epochs then ``run_to_empty``, and a second one's 8 sequential
    ``run_epoch``s; every transaction committed once, launch totals of 2
    windowed ladders and 21 SHA3 batches an epoch, the first pipelined
    epoch's ciphertexts equal to the native oracle's.
-11. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
+12. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
    1 024 proposers with the GF(2^16) coder: full delivery (every verdict
    and value; four proposers' shards equal to the host ``encode_np`` and
    their roots to hashlib's), data shards altered after the commit (the
    straggler decode and the re-check stage), a framing fault; and the
    device time of the GF(2^16) encode of one 64-proposer chunk.
-12. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
+13. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
     contributions) through the scale path: keygen, a warm run held against
     the native oracle's ciphertexts, 1 timed run with launch counts as
     derived from the code (ladder 2, SHA3 16 chunks × 11 Merkle levels,
     Kernel 1 none), and one profiled run for the device's idle share and
     the device time of the GF(2^16) product, SHA3 and the ladders.
-13. ``epoch4096``: BASELINE config 5, HoneyBadger epochs at N = 4096 (f =
+14. ``epoch4096``: BASELINE config 5, HoneyBadger epochs at N = 4096 (f =
     1365, one 64-byte transaction a node, ``compact=True``, as bench.py's
     ``bench_hb_epoch4096``): keygen, the GF(2^16) coder's build (closed-form
     matrix on the host, bit matrix on the card) with its seconds and device
@@ -87,12 +91,12 @@ Phases, one JSON line each; any failure exits non-zero:
     native oracle, 1 timed run, launches as ``large_epoch_launches``
     derives them: 4 encrypt chunks of 1 024 proposers, 2 ladders each; SHA3
     64 chunks × 13 Merkle levels; Kernel 1 none; a profiled run).
-14. ``sustained4096``: bench.py's ``sustained4096`` session on the same
+15. ``sustained4096``: bench.py's ``sustained4096`` session on the same
     network: the encrypt route calibrated (native against device, one warm
     encrypt phase each, the faster kept), then SUSTAINED_EPOCHS epochs with
     epoch e+1's encrypt on a worker thread while epoch e runs; every batch
     equal to the contributions, launches as derived; epochs/s and drift.
-15. ``mesh``: the device mesh (``parallel/mesh.py``) under an NCCL world
+16. ``mesh``: the device mesh (``parallel/mesh.py``) under an NCCL world
     of one rank on cuda:0, its process group destroyed at the end: the N =
     64 epoch sharded over a 1-D and a 1 × 1 ``("dcn", "ici")`` mesh held
     equal to the unsharded epoch on the same inputs (ciphertext bytes,
@@ -103,14 +107,14 @@ Phases, one JSON line each; any failure exits non-zero:
     ``STATS`` deltas, sharded and unsharded seconds; then
     ``graft_entry.dryrun_multichip(1, quick=True)``, its JSON line first.
     World size 1 moves nothing over a collective: no speed claim.
-16. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
+17. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
     ``batch_verify_sig_shares`` over 256 signature shares (True; False with
     one share over another message; median of 3, its split into host
     dispatch, ladder wait, fetch + host fold and pairing check; the
     ladders' device ms and launches), the MSMs against the host's sums, and
     ``batch_verify_dec_shares`` over 256 decryption shares (True; False
     with one tampered).
-17. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
+18. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
     the forced device route against ``com.row(3)``, ``commitment_eval`` and
     ``bivar_commitment`` on the forced route against their host values,
     and the sweeps ``crypto/batch.py``'s routing thresholds are set from,
@@ -119,14 +123,14 @@ Phases, one JSON line each; any failure exits non-zero:
     route was faster at every point up to t = 181), the RLC fold and the
     share generation by rows, TPKE encrypt and decrypt of 64 000-byte
     messages at N = 64, and the encrypt without the native oracle.
-18. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 8 (``--dhb-n``):
+19. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 8 (``--dhb-n``):
     plain epochs with queued transactions, a vote adding one validator,
     epochs until the change completes, 2 epochs of the new era; the new
     key set's threshold decrypt, no transaction committed twice, and the
     driver pickled after the rotation (no CUDA tensor in it) restored with
     ``device="cpu"`` to the same next batch.  The DKG is host work of
     order N³, which bounds N here, not the card.
-19. ``objsim``: object mode (QHB over DHB over ``VirtualNet``) through the
+20. ``objsim``: object mode (QHB over DHB over ``VirtualNet``) through the
     simulation CLI on the card: (a) N = 10 at the defaults of upstream
     ``examples/simulation.rs`` (1 000 transactions of 10 B, batches of 100,
     the JAX CLI's cost model) under the native and the device erasure
@@ -136,7 +140,7 @@ Phases, one JSON line each; any failure exits non-zero:
     the same ledger gates, one ``ladder_window`` launch for each share-set
     fold of ≥ 8 rows and none else, the first 32 folds held against the
     host loop; wall seconds, cranks, messages and messages/s.
-20. ``vidsim``: the node stack without the network at N = 22, f = 7, on
+21. ``vidsim``: the node stack without the network at N = 22, f = 7, on
     ``VirtualNet`` under the device erasure backend, every node built as
     the reference's ``net/cluster.py`` ``build_algo`` builds it with
     encryption always, 64 transactions of 250 B a node, node 21's links
@@ -151,7 +155,7 @@ Phases, one JSON line each; any failure exits non-zero:
     ``ladder_window`` launch a share-set fold and no other launch, every
     erasure product on the device; crank-loop seconds, cranks, messages,
     virtual time, the shaper's counters, VID's counters and a host split.
-21. ``netsim``: the node runtime over real sockets at N = 22, f = 7: an
+22. ``netsim``: the node runtime over real sockets at N = 22, f = 7: an
     in-process ``LocalCluster`` (``ClusterConfig(device="cuda")``, 22
     ``NodeRuntime``s, each with its own pump thread, over localhost TCP on
     ephemeral ports), ``encrypt=True``, batches of 64, the flight recorder
@@ -170,7 +174,7 @@ Phases, one JSON line each; any failure exits non-zero:
     10 s.  Wall time to the last commit, tx/s, client latency p50/p99, the
     pumps' segment seconds, merged calls and jobs a call, ms a fold,
     erasure bytes/s.
-22. ``edge22``: the deployment ``python -m hbbft_tpu_torch.cluster_launch``
+23. ``edge22``: the deployment ``python -m hbbft_tpu_torch.cluster_launch``
     starts, on the card. (a) 22 node **processes** (``ClusterConfig(n=22,
     seed=0, device="cuda", encrypt=True, batch_size=64, pipeline_depth=2)``,
     the flight recorder on, the device erasure backend, ``netsim``'s 5 s
@@ -205,7 +209,7 @@ Phases, one JSON line each; any failure exits non-zero:
     first epoch, the socket cells clean and committing with the flood
     attributed to the claimed identity and every spoofed hello refused and
     attributed to the attacker's endpoint.
-23. ``kernels``: every kernel with its launches, errors and times; then the
+24. ``kernels``: every kernel with its launches, errors and times; then the
     whole run's seconds.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
@@ -563,6 +567,24 @@ def phase_build(ctx):
         "native_oracle_seconds": native["seconds"],
         "smi": ctx["smi"],
     }
+
+
+def phase_lint(ctx):
+    cmd = [sys.executable, "-m", "hbbft_tpu_torch.lint", "--json"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode not in (0, 1):  # 1: findings, in the document
+        raise RuntimeError(f"hblint exited {proc.returncode}: {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    summary = doc["summary"]
+    if summary["findings"] or summary["stale_baseline"]:
+        raise RuntimeError(f"hblint: {summary['findings']} findings, "
+                           f"{summary['stale_baseline']} stale baseline entries: "
+                           f"{doc['findings'][:5]}")
+    return {"lint_seconds": seconds, "checkers": doc["checkers"],
+            **{k: summary[k] for k in ("findings", "baselined", "suppressed",
+                                       "files_scanned", "stale_baseline")}}
 
 
 def phase_kernel_fp(ctx):
@@ -4162,7 +4184,8 @@ def main() -> int:
     ctx["leaf_bytes_large"] = _frame_shard_len([bytes(CIPHERTEXT_BYTES)], N_LARGE - 2 * F_LARGE)
     ctx["leaf_bytes_4096"] = _frame_shard_len([bytes(294 + CONTRIB_BYTES_4096)],
                                               N_4096 - 2 * F_4096)
-    phases = [("build", phase_build), ("kernel_field", phase_kernel_field),
+    phases = [("build", phase_build), ("lint", phase_lint),
+              ("kernel_field", phase_kernel_field),
               ("kernel_fp_mul_lazy", phase_kernel_fp),
               ("kernel_sha3", phase_kernel_sha3), ("kernel_ladder", phase_kernel_ladder),
               ("kernel_ladder_window", phase_kernel_ladder_window),

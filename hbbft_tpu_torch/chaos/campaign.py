@@ -670,14 +670,14 @@ async def _socket_scenario(spec: CellSpec, cell_dir: str,
             "first_kind": None, "incidents": [],
         }
         loop = asyncio.get_event_loop()
-        # (live watchtower over a
+        # hblint: disable=det-wall-clock (live watchtower over a
         # real-time cluster: wall clock IS the measured detection
         # latency, same clock as the cell's liveness measurement)
         watch_t0 = time.monotonic()
 
         async def watch_loop():
             while not stop_sampling.is_set():
-                # (same measured clock)
+                # hblint: disable=det-wall-clock (same measured clock)
                 now = time.monotonic()
                 new = await loop.run_in_executor(None, tower.tick, now)
                 for inc in new:
@@ -695,7 +695,7 @@ async def _socket_scenario(spec: CellSpec, cell_dir: str,
         client = await cluster.client(
             0, trace_dir=os.path.join(cell_dir, "client-0"))
         txs = [b"sock-%04d" % i for i in range(spec.txs)]
-        # (socket cells run a REAL-time
+        # hblint: disable=det-wall-clock (socket cells run a REAL-time
         # cluster under real-second chaos presets: wall time here is the
         # measured liveness metric, not replica logic — sim cells stay
         # on the virtual clock)
@@ -707,7 +707,7 @@ async def _socket_scenario(spec: CellSpec, cell_dir: str,
                     f"socket cell tx rejected with status {status}")
         for tx in txs:
             await client.wait_committed(tx, timeout_s=120)
-        # (same measured-liveness read)
+        # hblint: disable=det-wall-clock (same measured-liveness read)
         wall = time.monotonic() - t0
         await cluster.wait_epochs(min_batches=1, timeout_s=60)
         if injector_task is not None:

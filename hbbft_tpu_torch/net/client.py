@@ -621,7 +621,7 @@ class ClusterClient:
                         self.max_frame,
                     ))
                     await self._writer.drain()
-            # (nothing to account
+            # hblint: disable=fault-swallowed-drop (nothing to account
             # client-side: the recv loop fails every pending waiter with
             # the connection error; this loop just stops pinging)
             except (ConnectionError, OSError):
@@ -691,7 +691,7 @@ class ClusterClient:
                 seen_tids.append(digest[:16])
                 lat = now - t0 if t0 is not None else 0.0
                 if t0 is not None:
-                    # (one entry per tx
+                    # hblint: disable=bounded-ingress (one entry per tx
                     # THIS client submitted — caller-controlled load-
                     # generator measurement data, not peer-driven growth)
                     self.latencies.append((digest.hex(), lat))

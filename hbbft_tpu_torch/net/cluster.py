@@ -669,7 +669,7 @@ def find_free_base_port(n: int, lo: int = 23000, hi: int = 52000) -> int:
                 s.bind(("127.0.0.1", base + i))
                 socks.append(s)
             return base
-        # (port-availability probe:
+        # hblint: disable=fault-swallowed-drop (port-availability probe:
         # a busy port is the expected negative result, not dropped input)
         except OSError:
             continue
@@ -779,6 +779,9 @@ def _listening(host: str, port: int) -> bool:
         s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         try:
             s.bind((host, port))
+        # hblint: disable=fault-swallowed-drop (bind probe: the errno IS
+        # the verdict — EADDRINUSE means a listener holds the port; no
+        # input is dropped)
         except OSError as exc:
             return exc.errno == errno.EADDRINUSE
     return False
@@ -846,7 +849,7 @@ def shutdown_procs(procs, timeout_s: float = 15.0) -> None:
     for p in procs:
         try:
             p.wait(timeout=timeout_s)
-        # (escalation, not a drop:
+        # hblint: disable=fault-swallowed-drop (escalation, not a drop:
         # a node ignoring SIGTERM for timeout_s is SIGKILLed)
         except subprocess.TimeoutExpired:
             p.kill()
@@ -987,7 +990,7 @@ async def run_node(cfg: ClusterConfig, nid: int,
         timing_dir = os.environ.get("HBBFT_PUMP_TIMING", "")
         if timing_dir and rt._pump_timing:
             os.makedirs(timing_dir, exist_ok=True)
-            # (one-shot perf-diagnosis
+            # hblint: disable=async-blocking-call (one-shot perf-diagnosis
             # dump on the shutdown path; nothing is being served anymore)
             with open(os.path.join(timing_dir, f"node-{nid}.json"),
                       "w") as fh:

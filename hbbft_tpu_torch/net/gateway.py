@@ -109,7 +109,7 @@ def node_verifier(key_fn) -> Callable[..., bool]:
         try:
             return bool(key.verify(
                 tc.Signature.from_bytes(bytes(sig_bytes)), transcript))
-        # (a malformed signature IS
+        # hblint: disable=fault-swallowed-drop (a malformed signature IS
         # the refusal: verify() returning False surfaces as a counted
         # link failover at the call site)
         except ValueError:

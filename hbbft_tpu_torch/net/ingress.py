@@ -131,6 +131,7 @@ class PeerIngressWorker:
                 # the same counted drop path the inline decoder takes
                 # (chunks queued behind the poison frame die with the
                 # socket exactly as on the inline path)
+                # hblint: disable=fault-swallowed-drop
                 except (FrameError, ValueError) as exc:
                     self._failed = True
                     self.loop.call_soon_threadsafe(self.proto._fail, exc)
@@ -147,6 +148,7 @@ class PeerIngressWorker:
             # (payload, None) and the runtime re-decodes, fails
             # identically, and charges the strike to this peer —
             # attribution preserved
+            # hblint: disable=fault-swallowed-drop
             except ValueError:
                 return (payload, None)
             if len(memo) >= DECODE_MEMO_CAP:

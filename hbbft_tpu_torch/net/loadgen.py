@@ -248,7 +248,7 @@ class LoadGenerator:
         sem = asyncio.Semaphore(128)  # bound concurrent dials
 
         async def connect(i: int) -> ClusterClient:
-            # (the semaphore
+            # hblint: disable=async-lock-across-await (the semaphore
             # exists to bound concurrent dials: holding it across the
             # connect IS the backpressure, and connect has a timeout)
             async with sem:
@@ -445,7 +445,7 @@ def ctrl_state(cfg) -> List[Optional[Dict]]:
         try:
             doc = json.loads(
                 http_get(host, mport, "/status", timeout_s=3.0))
-        # (client-side poller: the
+        # hblint: disable=fault-swallowed-drop (client-side poller: the
         # None row IS the accounting — the schedule report shows the
         # unreachable node explicitly)
         except (OSError, ValueError):
@@ -623,7 +623,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 c = await connect_when_up(cfg, 0, client_id="load-probe")
                 await c.close()
 
-            # (asyncio.run is
+            # hblint: disable=async-unawaited-coroutine (asyncio.run is
             # the sync entrypoint, not this module's LoadGenerator.run)
             asyncio.run(probe())
         addrs = [cfg.addr(nid) for nid in range(cfg.n)]

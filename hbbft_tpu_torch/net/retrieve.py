@@ -331,8 +331,9 @@ class RetrieveService:
         payload: Optional[bytes] = None
         try:
             full = coder.reconstruct_np(lst, device=self.device)
-        # accounted below: a None reconstruction lands in the mismatches
-        # counter and the proposer's VidReconstructMismatch fault
+        # hblint: disable=fault-swallowed-drop (accounted below: a None
+        # reconstruction lands in the mismatches counter + the proposer's
+        # VidReconstructMismatch fault, never silently)
         except ValueError:
             full = None
         if full is not None and MerkleTree.from_vec(

@@ -609,7 +609,7 @@ class NodeRuntime:
             transcript = framing.auth_transcript(
                 self._cluster_id, nonce, session, node_id, role,
                 int(era))
-        # (the verdict return IS
+        # hblint: disable=fault-swallowed-drop (the verdict return IS
         # the accounting: the transport counts every non-ok verdict
         # under hbbft_guard_auth_failures_total{reason=...} and
         # journals the endpoint)
@@ -878,7 +878,7 @@ class NodeRuntime:
                     for sender, n in per.items():
                         if n > out.get(sender, 0):
                             out[sender] = n
-        # (nothing is dropped: this
+        # hblint: disable=fault-swallowed-drop (nothing is dropped: this
         # is a best-effort gauge sample racing the pump thread's
         # mutations; the next scrape re-reads the live state)
         except RuntimeError:

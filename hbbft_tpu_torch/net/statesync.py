@@ -357,7 +357,7 @@ class StateSyncClient:
                 ok = bool(key.verify(
                     tc.Signature.from_bytes(bytes(sig_bytes)),
                     transcript))
-            # (accounted just
+            # hblint: disable=fault-swallowed-drop (accounted just
             # below: every refusal path funnels into the shared
             # hbbft_sync_donor_auth_failures_total increment)
             except ValueError:

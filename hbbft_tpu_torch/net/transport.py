@@ -1067,7 +1067,7 @@ class _PeerSender:
                 ping_nonce += 1
                 try:
                     await asyncio.wait_for(ping_once(), self.t.heartbeat_s)
-                # (nothing is
+                # hblint: disable=fault-swallowed-drop (nothing is
                 # dropped: a congested writer just skips this ping and
                 # the pong deadline above decides peer death)
                 except asyncio.TimeoutError:
@@ -1550,7 +1550,7 @@ class Transport:
         peer = writer.get_extra_info("peername")
         try:
             return f"{peer[0]}:{peer[1]}"
-        # (address formatting
+        # hblint: disable=fault-swallowed-drop (address formatting
         # fallback, no input dropped — the refusal this string labels
         # is itself counted at every call site)
         except (TypeError, IndexError):

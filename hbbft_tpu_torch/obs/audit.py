@@ -231,7 +231,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = ap.parse_args(argv)
     try:
         res, _journals = run_audit(args.paths)
-    # (CLI entry: exit status 2 is
+    # hblint: disable=fault-swallowed-drop (CLI entry: exit status 2 is
     # the accounting — there is no registry in an offline audit run)
     except (FileNotFoundError, OSError) as exc:
         print(f"audit: {exc}", file=sys.stderr)
@@ -243,7 +243,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         try:
             doc = json.loads(http_get(host or "127.0.0.1", int(port),
                                       "/status"))
-        # (accounted: the appended
+        # hblint: disable=fault-swallowed-drop (accounted: the appended
         # status_mismatch flips the verdict to fork and the exit to 1)
         except (OSError, ValueError) as exc:
             res.status_mismatches.append(f"{target}: unreachable "

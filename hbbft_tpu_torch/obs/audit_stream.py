@@ -95,7 +95,7 @@ def _parse_statesync_note(detail: str) -> Optional[Dict[str, Any]]:
     )
     try:
         return {"index": int(fields["index"]), "head": fields["head"]}
-    # (accounted at the caller: a
+    # hblint: disable=fault-swallowed-drop (accounted at the caller: a
     # None return lands in sync_mismatches and flips the verdict to fork)
     except (KeyError, ValueError):
         return None
@@ -876,7 +876,7 @@ class JournalTailer:
                 rec = wire.decode_message(
                     payload, max_bytes=max_record,
                     max_blob=len(payload))
-            # (accounted below:
+            # hblint: disable=fault-swallowed-drop (accounted below:
             # the torn branch counts hbbft_obs_stream_torn_tails_total
             # and the auditor's torn_tails, same as the batch reader)
             except (ValueError, TypeError):

@@ -399,7 +399,7 @@ class FlightRecorder:
             try:
                 with open(os.path.join(self.dirpath, name), "rb") as fh:
                     data = fh.read()
-            # (nothing dropped: an
+            # hblint: disable=fault-swallowed-drop (nothing dropped: an
             # unreadable prior segment stays on disk unindexed — kept,
             # not lost; the audit reader surfaces the damage loudly)
             except OSError:
@@ -556,7 +556,7 @@ class FlightRecorder:
                 continue
             try:
                 os.remove(os.path.join(self.dirpath, name))
-            # (nothing dropped: the
+            # hblint: disable=fault-swallowed-drop (nothing dropped: the
             # segment is already gone — the max_segments cap beat this
             # checkpoint to it; counting it as a write failure would
             # fake a disk-health signal)
@@ -804,7 +804,7 @@ def read_segment_bytes(data: bytes,
             # above MAX_BLOB_BYTES and must not read back as "torn"
             records.append(wire.decode_message(
                 payload, max_bytes=max_record, max_blob=len(payload)))
-        # (accounted two lines down:
+        # hblint: disable=fault-swallowed-drop (accounted two lines down:
         # every break lands in the torn branch that counts
         # hbbft_obs_flight_torn_tails_total and warns)
         except (ValueError, TypeError):
@@ -870,7 +870,7 @@ def find_journal_dirs(root: str) -> List[str]:
     def has_segments(d: str) -> bool:
         try:
             return any(_SEGMENT_RE.match(n) for n in os.listdir(d))
-        # (directory probe: not-a-
+        # hblint: disable=fault-swallowed-drop (directory probe: not-a-
         # journal-dir is the expected negative, surfaced by the caller
         # as "no journal segments under …" / audit exit status 2)
         except OSError:
@@ -881,7 +881,7 @@ def find_journal_dirs(root: str) -> List[str]:
     out = []
     try:
         children = sorted(os.listdir(root))
-    # (same probe: an unreadable
+    # hblint: disable=fault-swallowed-drop (same probe: an unreadable
     # root returns empty and the audit entry point exits 2 loudly)
     except OSError:
         return []

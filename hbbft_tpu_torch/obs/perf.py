@@ -127,7 +127,7 @@ class PerfPlane:
         The only wall-clock read in the module lives here — everything
         below takes ``now`` from its caller."""
         if now is None:
-            # (the sampler entry point:
+            # hblint: disable=det-wall-clock (the sampler entry point:
             # the perf plane measures REAL elapsed time by contract;
             # sim/test callers pass their own `now`)
             now = time.monotonic()

@@ -55,7 +55,7 @@ def poll_target(host: str, port: int, timeout_s: float = 2.0
     try:
         status = http_get(host, port, "/status", timeout_s)
         metrics = http_get(host, port, "/metrics", timeout_s)
-    # (poller client side: a down
+    # hblint: disable=fault-swallowed-drop (poller client side: a down
     # node renders as the DOWN row — that IS the accounting)
     except (OSError, ValueError):
         return None
@@ -64,7 +64,7 @@ def poll_target(host: str, port: int, timeout_s: float = 2.0
     health = None
     try:
         health = json.loads(http_get(host, port, "/health", timeout_s))
-    # (benign: /health is optional
+    # hblint: disable=fault-swallowed-drop (benign: /health is optional
     # — old endpoints and gateways render a "-" health cell, nothing
     # is dropped)
     except (OSError, ValueError):
@@ -75,7 +75,7 @@ def poll_target(host: str, port: int, timeout_s: float = 2.0
             "metrics": parse_prometheus_text(metrics),
             "health": health or None,
         }
-    # (same: unparseable responses
+    # hblint: disable=fault-swallowed-drop (same: unparseable responses
     # render the node as DOWN)
     except ValueError:
         return None
@@ -425,7 +425,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             if args.iterations and i >= args.iterations:
                 break
             time.sleep(args.interval)
-    # (interactive exit, not a
+    # hblint: disable=fault-swallowed-drop (interactive exit, not a
     # dropped input: ^C ends the watch loop cleanly)
     except KeyboardInterrupt:
         pass

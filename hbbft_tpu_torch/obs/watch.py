@@ -132,7 +132,7 @@ def normalize_perf_profile(doc: Any) -> Dict[str, float]:
         mean = v.get("mean_s") if isinstance(v, dict) else v
         try:
             mean = float(mean)
-        # (config parsing: a
+        # hblint: disable=fault-swallowed-drop (config parsing: a
         # malformed profile entry is skipped, not an ingress drop)
         except (TypeError, ValueError):
             continue
@@ -152,7 +152,7 @@ def parse_slo_rule(text: str) -> SloRule:
                 break
             try:
                 return SloRule(signal, op, float(limit))
-            # (config parsing, not
+            # hblint: disable=fault-swallowed-drop (config parsing, not
             # an ingress path: the break falls through to the ValueError
             # below, so nothing is dropped — the caller gets the error)
             except ValueError:
@@ -205,7 +205,7 @@ def poll_full(host: str, port: int,
         status = json.loads(http_get(host, port, "/status", timeout_s))
         metrics = parse_prometheus_text(
             http_get(host, port, "/metrics", timeout_s))
-    # (accounted by the caller: a
+    # hblint: disable=fault-swallowed-drop (accounted by the caller: a
     # None snapshot counts hbbft_health_scrape_failures_total{target}
     # and feeds the target_down hysteresis)
     except (OSError, ValueError):
@@ -213,7 +213,7 @@ def poll_full(host: str, port: int,
     health: Optional[dict] = None
     try:
         health = json.loads(http_get(host, port, "/health", timeout_s))
-    # (benign: /health is optional
+    # hblint: disable=fault-swallowed-drop (benign: /health is optional
     # on old endpoints; the status/metrics surfaces above still feed
     # every signal that predates it)
     except (OSError, ValueError):
@@ -347,7 +347,7 @@ class Watchtower:
             if fut.done():
                 try:
                     snap = fut.result()
-                # (accounted just
+                # hblint: disable=fault-swallowed-drop (accounted just
                 # below: the None snapshot counts the per-target
                 # scrape-failure metric)
                 except Exception:
@@ -727,7 +727,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.journal_out:
         from hbbft_tpu_torch.obs.flight import FlightRecorder
 
-        # (watchtower CLI: incident
+        # hblint: disable=det-wall-clock (watchtower CLI: incident
         # timestamps are operator-facing wall clock by design)
         import time as _time
 
@@ -754,7 +754,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     i = 0
     try:
         while True:
-            # (CLI poll loop: live
+            # hblint: disable=det-wall-clock (CLI poll loop: live
             # polling is wall-clock by nature; the Watchtower core
             # itself is clock-free — tick() takes the caller's clock)
             now = time.time()
@@ -767,7 +767,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             if args.iterations and i >= args.iterations:
                 break
             time.sleep(args.interval)
-    # (interactive exit, not a
+    # hblint: disable=fault-swallowed-drop (interactive exit, not a
     # dropped input: ^C ends the watch loop cleanly)
     except KeyboardInterrupt:
         pass

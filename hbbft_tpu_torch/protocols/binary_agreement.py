@@ -117,11 +117,12 @@ class SbvBroadcast:
         out: List[Tuple[str, bool]] = []
         count = len(self.bval_received[value])
         if count >= self.f + 1 and value not in self.bval_sent:
-            # a set of bools: the value domain caps it at two members
+            # hblint: disable=bounded-ingress (a set of BOOLS: the value
+            # domain caps it at two members)
             self.bval_sent.add(value)
             out.append(("bval", value))
         if count >= 2 * self.f + 1 and value not in self.bin_values:
-            # the same two-member bool set
+            # hblint: disable=bounded-ingress (same two-member bool set)
             self.bin_values.add(value)
             if not self.aux_sent:
                 self.aux_sent = True

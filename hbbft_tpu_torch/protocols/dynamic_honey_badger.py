@@ -221,9 +221,9 @@ def _keygen_payload(era: int, sender: NodeId, kind: str, payload: bytes) -> byte
 
 
 @dataclass(frozen=True)
-# never travels bare: always inside the registered KeyGenWrap envelope,
-# whose codec (enc_skg/dec_skg in wire._lazy_register) covers this class
-# field for field
+# hblint: disable=wire-unregistered (never travels bare: always inside
+# the registered KeyGenWrap envelope, whose codec — enc_skg/dec_skg in
+# wire._lazy_register — covers this class field-for-field)
 class SignedKeyGenMsg:
     era: int
     sender: NodeId

@@ -207,8 +207,8 @@ class SyncKeyGen:
             )
             if not bls.g1_eq(bls.g1_mul(bls.G1_GEN, v), expect):
                 return AckOutcome(fault=FaultKind.InvalidAck)
-        # dealer and acker are validator indices: both dimensions are
-        # capped by the node count
+        # hblint: disable=bounded-ingress (dealer and acker are validator
+        # indices: both dimensions are capped by the node count)
         self.acks.setdefault(dealer, set()).add(acker)
         return AckOutcome()
 

@@ -506,8 +506,9 @@ class VidQueueingHoneyBadger(QueueingHoneyBadger):
                 if payload.startswith(COMMIT_MAGIC):
                     try:
                         cert = decode_commitment(payload)
-                    # accounted below: a None cert is the proposer's
-                    # counted VidInvalidCert fault, never a silent skip
+                    # hblint: disable=fault-swallowed-drop (accounted
+                    # below: a None cert is the proposer's counted
+                    # VidInvalidCert fault, never a silent skip)
                     except ValueError:
                         cert = None
                     # our own slot needs no cert verification: the subset
