@@ -7,6 +7,7 @@ on one NVIDIA card.
     python3 chip_smoke.py --phases lint   # the port's static analysis (and build)
     python3 chip_smoke.py --phases qhb64,dhb --dhb-n 16   # the drivers; dhb at N = 16
     python3 chip_smoke.py --phases epoch4096,sustained4096   # BASELINE config 5
+    python3 chip_smoke.py --phases kernel_bitplane,epoch16384   # the GF(2) kernel; N = 16384
     python3 chip_smoke.py --phases objsim   # object mode: the simulation CLI
     python3 chip_smoke.py --phases vidsim   # the node stack on VirtualNet at N = 22
     python3 chip_smoke.py --phases netsim   # the node runtime over localhost TCP at N = 22
@@ -15,7 +16,7 @@ on one NVIDIA card.
 
 Phases, one JSON line each; any failure exits non-zero:
 
-1. ``build``: nvcc builds the four kernels from ``hbbft_tpu_torch/csrc``
+1. ``build``: nvcc builds the five kernels from ``hbbft_tpu_torch/csrc``
    for sm_90a (one nvcc per source, started together) while the native BLS
    oracle builds beside them.
 2. ``lint``: the port's static analysis, ``python -m hbbft_tpu_torch.lint
@@ -35,7 +36,18 @@ Phases, one JSON line each; any failure exits non-zero:
    shard each and 2048 interior pairs of 64 bytes; the leaves of one
    64-proposer chunk: 65 536 at N = 1024, 262 144 of 2 bytes at N = 4096),
    timed there by CUDA events and by the profiler's device time per launch.
-6. ``kernel_ladder``: the bitwise whole-ladder kernel against the plain
+6. ``kernel_bitplane``: the GF(2) bit-plane product over packed bits
+   (``csrc/bitplane.cu``) against its plain version (the operands unpacked,
+   a float32 product) on the card, bit-exact, at the shapes its paths give
+   it: the N = 64 epoch's GF(2^8) encode (187 136 byte rows, 176 bits, 336
+   columns), the mesh round's masked decode (1 408 decode matrices of 176 x
+   176 bits over 2 924 rows each), one 64-proposer chunk's GF(2^16) encode
+   at N = 1024 (6 080 rows, 5 472 bits, 10 912 columns) and at N = 4096 (64
+   rows, 21 856 bits, 43 680 columns); each timed by CUDA events beside its
+   bound (one LOP3 a row, column and word), the plain version, and the
+   library calls on the unpacked operands (float32 ``torch.matmul`` and,
+   for one 2-D product, ``torch._int_mm`` of the int8 bits).
+7. ``kernel_ladder``: the bitwise whole-ladder kernel against the plain
    stepwise ladder on the card (plain multiply, no kernel), digit-exact and
    inf-exact, at the N = 64 epoch's encrypt shapes (G1 256 rows, G2 128
    rows; 132 bits) with edge rows (a zero scalar, all-ones bits, base_inf
@@ -43,7 +55,7 @@ Phases, one JSON line each; any failure exits non-zero:
    of each shape; each shape timed.  No path runs this kernel now (the
    windowed one was faster at every size measured); it stays held against
    its plain version.
-7. ``kernel_ladder_window``: the 4-bit windowed kernel, the one every path
+8. ``kernel_ladder_window``: the 4-bit windowed kernel, the one every path
    runs, against its plain version, digit- and inf-exact, at G1 256 / 37 /
    4 096 / 16 384 / 16 rows (N = 64 and coin256, ragged, N = 1024 and
    4096, dkg256's forced device route, objsim's share-set fold) and G2 128
@@ -52,51 +64,64 @@ Phases, one JSON line each; any failure exits non-zero:
    edge rows, three rows each against the native oracle; timed with its
    bound, the K it runs at, its registers, spilled bytes, blocks an SM and
    the SASS instructions of a lazy operation at that K.
-8. ``ladder_crossover``: both ladder kernels at 128 … 65 536 rows, G1 and
+9. ``ladder_crossover``: both ladder kernels at 128 … 65 536 rows, G1 and
    G2, ms of one launch each by CUDA events, the windowed one also at each
    K beside the K it picks (every K's result equal): why every dispatch
    runs the windowed kernel, and at which K.
-9. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
+10. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
    contributions) with the TPKE encrypt ladders on the card: a warm run
    whose ciphertexts are held against the native oracle's, then 5 timed
    runs, each with every kernel's launch counter reset just before it and
-   read just after (2 windowed ladder launches, SHA3 21, Kernel 1 none).
-10. ``profile``: the device's busy share (kernel time from torch.profiler
+   read just after (2 windowed ladder launches, SHA3 21, 3 bit-plane
+   products: the encode, the batched decode, the re-encode; Kernel 1 none).
+11. ``profile``: the device's busy share (kernel time from torch.profiler
    over wall time) and kernel launches, over the whole encrypt phase and
    over ACS + decrypt.
-11. ``qhb64``: ``BatchedQueueingHoneyBadger`` at N = 64, 256 transactions
+12. ``qhb64``: ``BatchedQueueingHoneyBadger`` at N = 64, 256 transactions
    of 250 B a node an epoch (65 028-byte contributions) from a queue of
    1 024 of its own, device encrypt route: 8 ``run_epochs_pipelined``
    epochs then ``run_to_empty``, and a second one's 8 sequential
    ``run_epoch``s; every transaction committed once, launch totals of 2
    windowed ladders and 21 SHA3 batches an epoch, the first pipelined
    epoch's ciphertexts equal to the native oracle's.
-12. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
+13. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
    1 024 proposers with the GF(2^16) coder: full delivery (every verdict
    and value; four proposers' shards equal to the host ``encode_np`` and
    their roots to hashlib's), data shards altered after the commit (the
-   straggler decode and the re-check stage), a framing fault; and the
+   straggler decode and the re-check stage), a framing fault, each with
+   one bit-plane launch a proposer chunk and stage (16, 32, 16); and the
    device time of the GF(2^16) encode of one 64-proposer chunk.
-13. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
+14. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
     contributions) through the scale path: keygen, a warm run held against
     the native oracle's ciphertexts, 1 timed run with launch counts as
     derived from the code (ladder 2, SHA3 16 chunks × 11 Merkle levels,
-    Kernel 1 none), and one profiled run for the device's idle share and
-    the device time of the GF(2^16) product, SHA3 and the ladders.
-14. ``epoch4096``: BASELINE config 5, HoneyBadger epochs at N = 4096 (f =
+    bit-plane 16, one encode a chunk; Kernel 1 none), and one profiled run
+    for the device's idle share and the device time of the bit-plane
+    kernel, SHA3 and the ladders.
+15. ``epoch4096``: BASELINE config 5, HoneyBadger epochs at N = 4096 (f =
     1365, one 64-byte transaction a node, ``compact=True``, as bench.py's
     ``bench_hb_epoch4096``): keygen, the GF(2^16) coder's build (closed-form
-    matrix on the host, bit matrix on the card) with its seconds and device
-    memory, then ``epoch1024``'s gates and times (warm run against the
-    native oracle, 1 timed run, launches as ``large_epoch_launches``
+    matrix on the host, packed bit matrix on the card) with its seconds and
+    device memory, then ``epoch1024``'s gates and times (warm run against
+    the native oracle, 1 timed run, launches as ``large_epoch_launches``
     derives them: 4 encrypt chunks of 1 024 proposers, 2 ladders each; SHA3
-    64 chunks × 13 Merkle levels; Kernel 1 none; a profiled run).
-15. ``sustained4096``: bench.py's ``sustained4096`` session on the same
+    64 chunks × 13 Merkle levels; bit-plane 64; Kernel 1 none; a profiled
+    run).
+16. ``sustained4096``: bench.py's ``sustained4096`` session on the same
     network: the encrypt route calibrated (native against device, one warm
     encrypt phase each, the faster kept), then SUSTAINED_EPOCHS epochs with
     epoch e+1's encrypt on a worker thread while epoch e runs; every batch
     equal to the contributions, launches as derived; epochs/s and drift.
-16. ``mesh``: the device mesh (``parallel/mesh.py``) under an NCCL world
+17. ``epoch16384``: bench.py's ``bench_hb_epoch16384`` (N = 16384, f = 5461,
+    32 bytes a node, ``compact=True``, the keys from ``Random(23)``): the
+    keygen timed, the coder's build (the closed-form (16384, 5462) matrix
+    on the host, its 1.9 GB packed bit matrix on the card: the float32 one
+    would be 61 GB) with its seconds and device bytes, the bit-plane kernel
+    timed at one chunk, then ``epoch4096``'s gates on one timed epoch
+    (launches: 16 encrypt chunks, 2 ladders each; SHA3 256 chunks × 15
+    Merkle levels; bit-plane 256; no profiled epoch) and three proposers'
+    shards from stage A against the host ``encode_np``; peak device memory.
+18. ``mesh``: the device mesh (``parallel/mesh.py``) under an NCCL world
     of one rank on cuda:0, its process group destroyed at the end: the N =
     64 epoch sharded over a 1-D and a 1 × 1 ``("dcn", "ici")`` mesh held
     equal to the unsharded epoch on the same inputs (ciphertext bytes,
@@ -107,14 +132,14 @@ Phases, one JSON line each; any failure exits non-zero:
     ``STATS`` deltas, sharded and unsharded seconds; then
     ``graft_entry.dryrun_multichip(1, quick=True)``, its JSON line first.
     World size 1 moves nothing over a collective: no speed claim.
-17. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
+19. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
     ``batch_verify_sig_shares`` over 256 signature shares (True; False with
     one share over another message; median of 3, its split into host
     dispatch, ladder wait, fetch + host fold and pairing check; the
     ladders' device ms and launches), the MSMs against the host's sums, and
     ``batch_verify_dec_shares`` over 256 decryption shares (True; False
     with one tampered).
-18. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
+20. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
     the forced device route against ``com.row(3)``, ``commitment_eval`` and
     ``bivar_commitment`` on the forced route against their host values,
     and the sweeps ``crypto/batch.py``'s routing thresholds are set from,
@@ -123,14 +148,14 @@ Phases, one JSON line each; any failure exits non-zero:
     route was faster at every point up to t = 181), the RLC fold and the
     share generation by rows, TPKE encrypt and decrypt of 64 000-byte
     messages at N = 64, and the encrypt without the native oracle.
-19. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 8 (``--dhb-n``):
+21. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 8 (``--dhb-n``):
     plain epochs with queued transactions, a vote adding one validator,
     epochs until the change completes, 2 epochs of the new era; the new
     key set's threshold decrypt, no transaction committed twice, and the
     driver pickled after the rotation (no CUDA tensor in it) restored with
     ``device="cpu"`` to the same next batch.  The DKG is host work of
     order N³, which bounds N here, not the card.
-20. ``objsim``: object mode (QHB over DHB over ``VirtualNet``) through the
+22. ``objsim``: object mode (QHB over DHB over ``VirtualNet``) through the
     simulation CLI on the card: (a) N = 10 at the defaults of upstream
     ``examples/simulation.rs`` (1 000 transactions of 10 B, batches of 100,
     the JAX CLI's cost model) under the native and the device erasure
@@ -138,9 +163,10 @@ Phases, one JSON line each; any failure exits non-zero:
     no fault, and both runs equal in ledgers, message counts, wire bytes
     and virtual time; (b) N = 22, f = 7 (220 transactions, batch 220):
     the same ledger gates, one ``ladder_window`` launch for each share-set
-    fold of ≥ 8 rows and none else, the first 32 folds held against the
-    host loop; wall seconds, cranks, messages and messages/s.
-21. ``vidsim``: the node stack without the network at N = 22, f = 7, on
+    fold of ≥ 8 rows, one bit-plane launch a product of the device erasure
+    backend and none else, the first 32 folds held against the host loop;
+    wall seconds, cranks, messages and messages/s.
+23. ``vidsim``: the node stack without the network at N = 22, f = 7, on
     ``VirtualNet`` under the device erasure backend, every node built as
     the reference's ``net/cluster.py`` ``build_algo`` builds it with
     encryption always, 64 transactions of 250 B a node, node 21's links
@@ -152,10 +178,11 @@ Phases, one JSON line each; any failure exits non-zero:
     every node, every payload equal to its proposer's, every transaction
     committed once, no fault; (b) ``SenderQueue(QueueingHoneyBadger(DHB))``
     on the same network with the same gates but retrieval.  Both: one
-    ``ladder_window`` launch a share-set fold and no other launch, every
-    erasure product on the device; crank-loop seconds, cranks, messages,
+    ``ladder_window`` launch a share-set fold, one bit-plane launch an
+    erasure product and no other launch, every erasure product on the
+    device; crank-loop seconds, cranks, messages,
     virtual time, the shaper's counters, VID's counters and a host split.
-22. ``netsim``: the node runtime over real sockets at N = 22, f = 7: an
+24. ``netsim``: the node runtime over real sockets at N = 22, f = 7: an
     in-process ``LocalCluster`` (``ClusterConfig(device="cuda")``, 22
     ``NodeRuntime``s, each with its own pump thread, over localhost TCP on
     ephemeral ports), ``encrypt=True``, batches of 64, the flight recorder
@@ -168,13 +195,14 @@ Phases, one JSON line each; any failure exits non-zero:
     node's ``/status`` with 0 decode failures and 21 peers connected,
     flight records written and none failed, two device folds and no host
     fold for each share-set job the pumps hand ``verify_dec_share_sets``
-    (on the cluster's device), ``ladder_window`` launches = 2 × those jobs
-    and no other launch, every erasure product on the device, in (b) 0
+    (on the cluster's device), ``ladder_window`` launches = 2 × those jobs,
+    one bit-plane launch an erasure product and no other launch, every
+    erasure product on the device, in (b) 0
     retrieval mismatches and failures, and ``LocalCluster.stop()`` within
     10 s.  Wall time to the last commit, tx/s, client latency p50/p99, the
     pumps' segment seconds, merged calls and jobs a call, ms a fold,
     erasure bytes/s.
-23. ``edge22``: the deployment ``python -m hbbft_tpu_torch.cluster_launch``
+25. ``edge22``: the deployment ``python -m hbbft_tpu_torch.cluster_launch``
     starts, on the card. (a) 22 node **processes** (``ClusterConfig(n=22,
     seed=0, device="cuda", encrypt=True, batch_size=64, pipeline_depth=2)``,
     the flight recorder on, the device erasure backend, ``netsim``'s 5 s
@@ -184,7 +212,7 @@ Phases, one JSON line each; any failure exits non-zero:
     hbbft_tpu_torch.net.gateway``) with 2 authenticated node links; the
     open-loop generator (``net/loadgen.py``) through the gateway only: 16
     clients, waves of 16 distinct 250-byte transactions, 64 tx/s offered
-    for 30 s; then at most 120 s until every node's ``/status`` shows every
+    for 15 s; then at most 120 s until every node's ``/status`` shows every
     admitted transaction and one chain head. (b) Two watchtower CLIs
     (``obs.watch``), so that the poll never waits behind the tail: one
     polls the 22 nodes and the gateway once a second until the cluster
@@ -202,14 +230,16 @@ Phases, one JSON line each; any failure exits non-zero:
     the last with the verdict ``clean``, and zero incidents from either;
     22 node rows and a gateway row; 0 decode
     failures and 21 peers on every ``/status``; summed over the processes,
-    ``ladder_window`` launches = 2 × merged share-set jobs, no host fold,
-    no other launch; every erasure product on the card; every node process
+    ``ladder_window`` launches = 2 × merged share-set jobs, bit-plane
+    launches = erasure products, no host fold, no other launch (and in this
+    process's campaign cells one bit-plane launch a device erasure product,
+    no other); every erasure product on the card; every node process
     with ``torch.cuda.is_available()`` and its stack on ``cuda``; smoke
     cells clean and committing, the equivocator triaged to node 3 and its
     first epoch, the socket cells clean and committing with the flood
     attributed to the claimed identity and every spoofed hello refused and
     attributed to the attacker's endpoint.
-24. ``kernels``: every kernel with its launches, errors and times; then the
+26. ``kernels``: every kernel with its launches, errors and times; then the
     whole run's seconds.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
@@ -258,9 +288,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # three-input logic op (LOP3), a three-input add and a funnel shift are one
 # instruction each.
 PEAK_BYTES_PER_S = 3.35e12
-# float32 outside the tensor cores (H100 SXM data sheet): the rate the
-# GF(2^16) bit-plane product is held against
-FLOAT32_PEAK_FLOP_PER_S = 67e12
 PIPE_PER_CLOCK_PER_SM = 64
 DISPATCH_PER_CLOCK_PER_SM = 128
 
@@ -298,6 +325,9 @@ TIMED_EPOCHS = 5
 # SHA3 launches in one N = 64 epoch: 21 batches (Merkle leaf level + 6
 # interior levels, for the commit, the proof checks and the root check)
 EPOCH_SHA3_LAUNCHES = 21
+# bit-plane launches in one N = 64 epoch (full delivery): the encode, the
+# batched survivor decode, the re-encode
+EPOCH_BITPLANE_LAUNCHES = 3
 LADDER_KERNELS = ("ladder_lazy", "ladder_window")
 # the scale path's configuration: N = 1024, f = 341 (k = 342 data shards of
 # 190 B for the same 64 000-byte contributions), through the GF(2^16) coder
@@ -313,6 +343,11 @@ F_4096 = 1365
 CONTRIB_BYTES_4096 = 64
 TIMED_EPOCHS_4096 = 1
 SUSTAINED_EPOCHS = 4
+# bench.py's ``bench_hb_epoch16384``: N = 16384, f = 5461 (k = 5462), one
+# 32-byte contribution a node, ciphertexts of 326 B, shards of 2 B
+N_16384 = 16384
+F_16384 = 5461
+CONTRIB_BYTES_16384 = 32
 
 
 def merkle_root_levels(n: int) -> int:
@@ -342,21 +377,24 @@ def encrypt_ladder_launches(n: int) -> dict:
 
 def epoch_launches(n: int) -> dict:
     """Launches of each kernel in one N = 64 epoch: the encrypt ladders,
-    ``EPOCH_SHA3_LAUNCHES`` SHA3 batches; Kernel 1 runs inside the ladder
-    kernels, never on its own."""
-    return {**encrypt_ladder_launches(n), "sha3_256": EPOCH_SHA3_LAUNCHES, "fp_mul_lazy": 0}
+    ``EPOCH_SHA3_LAUNCHES`` SHA3 batches, ``EPOCH_BITPLANE_LAUNCHES``
+    bit-plane products; Kernel 1 runs inside the ladder kernels, never on
+    its own."""
+    return {**encrypt_ladder_launches(n), "sha3_256": EPOCH_SHA3_LAUNCHES,
+            "bitplane": EPOCH_BITPLANE_LAUNCHES, "fp_mul_lazy": 0}
 
 
 def large_epoch_launches(n: int) -> dict:
     """Launches of each kernel in one scale-path epoch, from the code: the
     encrypt ladders, and per proposer chunk of the RBC round
-    (``BatchedRbc._large_chunk_size``) one ``merkle_root``; stage B, which
-    would hash as much again, is skipped because every shard matches."""
+    (``BatchedRbc._large_chunk_size``) one GF(2^16) encode (a bit-plane
+    product) and one ``merkle_root``; stage B, which would encode and hash
+    as much again, is skipped because every shard matches."""
     from hbbft_tpu_torch.parallel.rbc import BatchedRbc
 
     chunks = n // BatchedRbc._large_chunk_size(n)
-    return {**encrypt_ladder_launches(n),
-            "sha3_256": chunks * merkle_root_levels(n), "fp_mul_lazy": 0}
+    return {**encrypt_ladder_launches(n), "sha3_256": chunks * merkle_root_levels(n),
+            "bitplane": chunks, "fp_mul_lazy": 0}
 
 
 def check_launches(launches: dict, expected: dict, what: str) -> None:
@@ -686,6 +724,143 @@ def phase_kernel_sha3(ctx):
             "by_shape": shapes}
 
 
+def bitplane_work(ctx, batch: int, rows: int, d: int, cols: int, mats: int):
+    """The bit-plane product's bound and its work: ``batch`` x ``rows`` data
+    rows of ``d`` bits against ``cols`` output columns, from ``mats``
+    packed matrices (1 shared, or one a batch entry).  Operations: one LOP3
+    (acc ^= a & m) a (row, column, 32-bit word), all on the ALU pipe.
+    Bytes: each operand's ``ceil(d / 32)`` words a row or column read once,
+    the packed output (a bit a column) written once."""
+    words = -(-d // 32)
+    n_bytes = 4 * words * (batch * rows + mats * cols) + batch * rows * cols // 8
+    n_ops = (batch * rows * words * cols, 0, 0)
+    bms, by = bound_ms(ctx, n_bytes, n_ops)
+    return {"bound_ms": bms, "bound_by": by, "bytes": n_bytes, "lop3": n_ops[0],
+            "shape": {"batch": batch, "rows": rows, "bits": d, "words": words,
+                      "cols": cols, "matrices": mats}}
+
+
+def _bitplane_cases(torch, dev):
+    """The bit-plane kernel's operands at the shapes its paths give it, from
+    coders of their own (the shared coders' device caches stay cold for the
+    epochs' build timings): name → (packed data, packed matrix, contraction
+    bits, number of matrices, the GF(2^16) parity matrix on the card or
+    None)."""
+    import numpy as np
+
+    from hbbft_tpu_torch.ops import gf16, gf256, rs
+    from hbbft_tpu_torch.parallel.mesh import RECEIVER_CHUNK_BYTES
+
+    rng = np.random.default_rng(15)
+    cases = {}
+    # N = 64 (GF(2^8)): one RBC encode, 64 proposers x 22 data shards of
+    # the epoch's shard length (the rows are byte positions)
+    k, r = N_NODES - 2 * 21, 2 * 21
+    B = shard_bytes(CIPHERTEXT_BYTES, k)
+    coder = rs.ReedSolomon(k, r)
+    data = torch.from_numpy(rng.integers(0, 256, (N_NODES, k, B), dtype=np.uint8)).to(dev)
+    pm = coder._on(dev)
+    cases["n64_encode"] = (gf256.pack_bytes(data.transpose(-1, -2), pm.shape[-1]), pm, 8 * k, 1,
+                           None)
+    # a masked decode: the mesh round's receiver chunk (receivers x 64
+    # proposers, one 176 x 176 decode matrix each, the survivors drawn at
+    # random)
+    recv = max(1, RECEIVER_CHUNK_BYTES // (N_NODES * N_NODES * B))
+    order = rng.random((recv, N_NODES, N_NODES)).argsort(-1)[..., :k]
+    use = torch.from_numpy(np.sort(order, axis=-1)).to(dev)
+    dec, ok = gf256.gf_inv_matrix_torch(coder.matrix_on(dev)[use])
+    if not bool(ok.all()):
+        raise AssertionError("bit-plane cases: a singular survivor matrix")
+    pdec = gf256.pack_matrix(gf256.gf_matrix_to_bits_torch(dec))
+    surv = torch.from_numpy(rng.integers(0, 256, (recv, N_NODES, B, k), dtype=np.uint8)).to(dev)
+    cases["masked_decode"] = (gf256.pack_bytes(surv, pdec.shape[-1]), pdec, 8 * k,
+                              recv * N_NODES, None)
+    # one 64-proposer chunk of the GF(2^16) scale path at N = 1024 (shards of
+    # 190 B: 95 symbol rows a proposer) and at N = 4096 (shards of 2 B)
+    for name, n, f, value_bytes in (("n1024_chunk", N_LARGE, F_LARGE, CIPHERTEXT_BYTES),
+                                    ("n4096_chunk", N_4096, F_4096, 294 + CONTRIB_BYTES_4096)):
+        k = n - 2 * f
+        B = shard_bytes(value_bytes, k)
+        coder16 = rs.ReedSolomon16(k, 2 * f)
+        pm = coder16._on(dev)
+        parity = torch.from_numpy(coder16.parity_matrix.astype(np.int32)).to(dev)
+        data = torch.from_numpy(rng.integers(0, 256, (64, k, B), dtype=np.uint8)).to(dev)
+        cases[name] = (gf16.pack_shards(data, pm.shape[-1]), pm, 16 * k, 1, parity)
+    return cases
+
+
+def shard_bytes(value_bytes: int, k: int) -> int:
+    """The RBC's shard length for values of ``value_bytes`` over k data shards."""
+    from hbbft_tpu_torch.parallel.rbc import _frame_shard_len
+
+    return _frame_shard_len([bytes(value_bytes)], k)
+
+
+def phase_kernel_bitplane(ctx):
+    """The bit-plane kernel (``csrc/bitplane.cu``) against its plain version
+    on the card, bit-exact, at the shapes its paths give it
+    (``_bitplane_cases``); each timed by CUDA events beside its bound, the
+    plain version, and the library calls on the unpacked operands: the
+    float32 ``torch.matmul`` and, where its shape rules allow, ``torch._int_mm``
+    of the int8 bits (each result ``& 1``, as the plain version takes it).
+    At the GF(2^16) shapes the kernel's output is also held against the
+    float32 product with the bit matrix ``gf16.parity_bits_f32`` builds on
+    the card, unpacked by no packing code: a check of the packed matrix the
+    coder built there."""
+    import torch
+
+    from hbbft_tpu_torch.ops import gf16, gf256
+
+    dev = torch.device("cuda")
+    cases = _bitplane_cases(torch, dev)
+    out, max_err = {}, 0
+    for name, (a, m, d, mats, parity) in cases.items():
+        got = gf256.bitplane_packed(a, m)
+        ref = gf256.bitplane_packed_plain(a, m)
+        torch.cuda.synchronize()
+        err = int((got.int() - ref.int()).abs().max())
+        if parity is not None:
+            f32 = gf256.bitplane_parity_plain(gf256.unpack_bits(a, d), gf16.parity_bits_f32(parity))
+            err = max(err, int((got.int() - gf256.bits_to_bytes(f32).int()).abs().max()))
+            del f32
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"bitplane kernel differs from its plain version at {name}")
+        # a shared matrix multiplies every batch entry's rows as rows of one
+        # product; decode matrices, one a batch entry, a product each
+        batch = 1 if mats == 1 else a.shape[:-2].numel()
+        rows, cols = a.shape[:-1].numel() // batch, m.shape[-2]
+        rec = bitplane_work(ctx, batch, rows, d, cols, mats)
+        del ref
+        ms = time_ms(torch, lambda: gf256.bitplane_packed(a, m), 10, rounds=3)
+        plain_ms = time_ms(torch, lambda: gf256.bitplane_packed_plain(a, m), 1, rounds=3)
+        # the library calls, on the operands unpacked once outside the timing
+        bits = gf256.unpack_bits(a, 32 * a.shape[-1]).to(torch.float32)
+        mat = gf256.unpack_matrix(m, 32 * a.shape[-1]).to(torch.float32)
+        f32_ms = time_ms(torch, lambda: torch.matmul(bits, mat).to(torch.int32) & 1, 1, rounds=3)
+        del bits, mat
+        int_mm = {"ms": None}
+        if mats == 1:
+            bits8 = gf256.unpack_bits(a, 32 * a.shape[-1]).reshape(rows, -1).contiguous()
+            mat8 = gf256.unpack_bits(m, 32 * a.shape[-1]).reshape(cols, -1).t()
+            try:
+                int_mm["ms"] = time_ms(torch, lambda: torch._int_mm(bits8, mat8) & 1, 1,
+                                       rounds=3)
+            except RuntimeError as exc:
+                int_mm["refused"] = str(exc).splitlines()[0][:160]
+            del bits8, mat8
+        else:
+            int_mm["refused"] = "torch._int_mm takes one 2-D product, not a batch"
+        library = [t for t in (f32_ms, int_mm["ms"]) if t is not None]
+        rec.update({"ms": ms, "plain_ms": plain_ms, "library_ms": min(library),
+                    "library_float32_matmul_ms": f32_ms, "library_int_mm": int_mm,
+                    "share_of_bound": rec["bound_ms"] / ms})
+        out[name] = rec
+        torch.cuda.empty_cache()
+    ctx["bitplane"] = {"max_abs_err": max_err, "cases": out}
+    return {"max_abs_err": max_err, "tolerance": 0, "bit_exact": True, "by_case": out}
+
+
 FIELD_KINDS = {"MUL": 0, "ADD": 1, "SUB": 2}
 FIELD_ROWS = (37, 4096)
 FIELD_REPS = 4000
@@ -999,11 +1174,10 @@ def phase_epoch(ctx):
     }
 
 
-# kernels by kind, as substrings of the names torch.profiler records; "gemm"
-# is the float32 matrix product (the GF(2^k) bit-plane contraction)
+# kernels by kind, as substrings of the names torch.profiler records
 KERNEL_KINDS = {"ladder_lazy": "ladder_lazy_kernel", "ladder_window": "ladder_window_kernel",
-                "sha3_256": "sha3_256_kernel",
-                "fp_mul_lazy": "fp_mul_lazy_kernel", "gemm": "gemm"}
+                "sha3_256": "sha3_256_kernel", "bitplane": "bitplane_kernel",
+                "fp_mul_lazy": "fp_mul_lazy_kernel"}
 
 
 def _kernel_events(torch, prof):
@@ -1039,8 +1213,7 @@ def _busy_share(torch, fn, wall=None):
     busy = sum(e.self_device_time_total for e in kernels) / 1e6 if kernels else None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
     ours = [e for e in kernels if e not in top and any(
-        k in e.key for k in ("ladder_lazy_kernel", "ladder_window_kernel", "fp_mul_lazy_kernel",
-                             "sha3_256_kernel"))]
+        k in e.key for k in KERNEL_KINDS.values())]
     return {
         "wall_s": wall, "device_busy_s": busy,
         "idle_share": None if busy is None else 1 - busy / wall,
@@ -1302,7 +1475,8 @@ def phase_rbc_large(ctx):
     B = data.shape[-1]
     if B != ctx["leaf_bytes_large"]:
         raise AssertionError(f"shard length {B}, expected {ctx['leaf_bytes_large']}")
-    sha3_round = large_epoch_launches(P)["sha3_256"]
+    round_launches = large_epoch_launches(P)
+    sha3_round, bitplane_round = round_launches["sha3_256"], round_launches["bitplane"]
 
     def run(d, **kw):
         torch.cuda.synchronize()
@@ -1322,7 +1496,8 @@ def phase_rbc_large(ctx):
     if not (out["delivered"].all() and not out["fault"].any()
             and (out["echo_count"] == n).all() and (out["ready_count"] == n).all()):
         raise AssertionError("full delivery: not every proposer delivered")
-    if launches["sha3_256"] != sha3_round or not unframes_all(out):
+    if launches["sha3_256"] != sha3_round or launches["bitplane"] != bitplane_round \
+            or not unframes_all(out):
         raise AssertionError(f"full delivery: launches {launches} or a value differs")
     check = [0, 1, P // 2 + 1, P - 1]
     sent, root, *_ = rbc.large_stage_a(data[check], None, None, len(check))
@@ -1342,8 +1517,7 @@ def phase_rbc_large(ctx):
         for _ in range(5):
             rbc.coder.encode(chunk)
     enc_dev = _device_ms_by_kind(_kernel_events(torch, prof), calls=5)
-    rows, depth, width = chunk.shape[0] * (B // 2), 16 * k, 16 * (n - k)
-    product_flop = 2 * rows * depth * width
+    product = bitplane_work(ctx, 1, chunk.shape[0] * (B // 2), 16 * k, 16 * (n - k), 1)
 
     # (b) data shards altered after the commit at three proposers (two
     # survivor patterns): the straggler decode on the host, then stage B
@@ -1357,30 +1531,33 @@ def phase_rbc_large(ctx):
     want_ec[list(tampered)] = n - 1
     if not (out["delivered"].all() and not out["fault"].any() and np.array_equal(ec, want_ec)):
         raise AssertionError("data-shard tamper: wrong verdicts or echo counts")
-    if launches_b["sha3_256"] != 2 * sha3_round or not unframes_all(out):
+    # stage A and stage B each encode and hash every chunk; the stragglers
+    # decode on the host
+    if launches_b["sha3_256"] != 2 * sha3_round or launches_b["bitplane"] != 2 * bitplane_round \
+            or not unframes_all(out):
         raise AssertionError(f"data-shard tamper: launches {launches_b} or a value differs")
 
     # (c) a framing fault: proposer 9's length prefix exceeds its payload
     bad = data.clone()
     bad[9, 0, :4] = 0xFF
-    out, framing_s, _ = run(bad)
+    out, framing_s, launches_c = run(bad)
     d, fl = out["delivered"], out["fault"]
     if d[:, 9].any() or not fl[:, 9].all() or out["data"][0, 9].any():
         raise AssertionError("framing fault: proposer 9 was not faulted")
     if not (d[:, :9].all() and d[:, 10:].all() and unframes_all(out, skip=(9,))):
         raise AssertionError("framing fault: another proposer was not delivered")
+    if launches_c["bitplane"] != bitplane_round:
+        raise AssertionError(f"framing fault: launches {launches_c}")
     return {
         "n": n, "f": F_LARGE, "k": k, "proposers": P, "shard_bytes": B,
         "coder_s": coder_s, "full_delivery_s": full_s, "data_shard_tamper_s": tamper_s,
         "framing_fault_s": framing_s,
-        "launches": {"full_delivery": launches, "data_shard_tamper": launches_b},
+        "launches": {"full_delivery": launches, "data_shard_tamper": launches_b,
+                     "framing_fault": launches_c},
         "shards_match_encode_np": check, "roots_match_hashlib": check,
         "tampered": {str(p): list(v) for p, v in tampered.items()},
-        "gf16_encode_chunk": {
-            "proposers": chunk.shape[0], "ms": enc_ms, "device_ms": enc_dev,
-            "product_shape": [rows, depth, width], "product_flop": product_flop,
-            "float32_peak_ms": product_flop / FLOAT32_PEAK_FLOP_PER_S * 1e3,
-        },
+        "gf16_encode_chunk": {"proposers": chunk.shape[0], "ms": enc_ms,
+                              "device_ms": enc_dev, "bitplane": product},
     }
 
 
@@ -1395,14 +1572,16 @@ def _all_accepted(detail) -> bool:
 
 
 def _scale_epochs(tag: str, ep, nets, contribs, warm_seed: int, timed_seeds,
-                  profile_seed: int, expected: dict):
+                  profile_seed, expected: dict, keep: dict | None = None):
     """The scale-path epoch's gates and times: a warm run, split so that its
     ciphertexts can be held against the native oracle's encrypt under the
     same scalars (that reference encrypt is not part of warm_epoch_s); one
     timed run a seed of ``timed_seeds``, each with the launch counters reset
     just before it and read just after, its batch, acceptance and launches
-    checked; then one more epoch under the profiler, against the median
-    wall of the bare timed epochs.  Returns (result fields, launches)."""
+    checked; then, unless ``profile_seed`` is None, one more epoch under the
+    profiler, against the median wall of the bare timed epochs.  ``keep``
+    (when given) gets the warm run's payloads.  Returns (result fields,
+    launches)."""
     import torch
 
     from hbbft_tpu_torch import _build
@@ -1421,6 +1600,9 @@ def _scale_epochs(tag: str, ep, nets, contribs, warm_seed: int, timed_seeds,
     ]
     if payloads != native:
         raise AssertionError(f"{tag}: device-route ciphertexts differ from the native oracle's")
+    del native
+    if keep is not None:
+        keep["payloads"] = payloads
     t0 = time.perf_counter()
     batch, _ = ep.run_from_payloads(payloads)
     torch.cuda.synchronize()
@@ -1445,7 +1627,8 @@ def _scale_epochs(tag: str, ep, nets, contribs, warm_seed: int, timed_seeds,
         timed.append({"epoch_s": epoch_s, "phase_s": detail["phase_s"],
                       "aba_epochs": detail["epochs"]})
     median = statistics.median(t["epoch_s"] for t in timed)
-    busy = _busy_share(torch, lambda: ep.run(contribs, random.Random(profile_seed)), wall=median)
+    busy = None if profile_seed is None else _busy_share(
+        torch, lambda: ep.run(contribs, random.Random(profile_seed)), wall=median)
     return {
         "payload_bytes": detail["payload_bytes"], "epoch_s_median": median, "timed": timed,
         "warm_epoch_s": warm_s, "warm_encrypt_s": warm_encrypt_s,
@@ -1522,12 +1705,12 @@ def phase_epoch4096(ctx):
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    bits, _ = coder._on(dev)
+    bits = coder._on(dev)
     torch.cuda.synchronize()
     coder_device_s = time.perf_counter() - t0
     coder_mem = {"resident_bytes": torch.cuda.memory_allocated() - before,
                  "peak_bytes": torch.cuda.max_memory_allocated() - before,
-                 "bit_matrix_shape": list(bits.shape)}
+                 "packed_matrix_shape": list(bits.shape)}
     torch.cuda.reset_peak_memory_stats()
     ep = BatchedHoneyBadgerEpoch(nets, session_id=b"hb-epoch4096", compact=True,
                                  device="cuda", encrypt_backend="device")
@@ -1541,6 +1724,92 @@ def phase_epoch4096(ctx):
         "compact": True, "keygen_s": keygen_s, "coder_host_s": coder_host_s,
         "coder_device_s": coder_device_s, "coder_device_mem": coder_mem,
         **res, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def phase_epoch16384(ctx):
+    """bench.py's ``bench_hb_epoch16384`` (``_bench_hb_epoch_large(16384,
+    32, ...)``): N = 16384, f = 5461, the keys from ``random.Random(23)``,
+    then 32 bytes a node from the same generator, ``compact=True``, session
+    ``hb-epoch16384``, through the scale path with the TPKE encrypt ladders
+    on the card.  Keygen and the GF(2^16) coder's build (the closed-form
+    matrix on the host, the packed bit matrix on the card) timed, with the
+    coder's device bytes; the bit-plane kernel timed at one 64-proposer
+    chunk; ``epoch4096``'s gates on one timed epoch (no profiled one); and
+    the parity of three proposers' framed ciphertexts, as the epoch's
+    stage A encodes them on the card, against the host ``encode_np``."""
+    import numpy as np
+    import torch
+
+    from hbbft_tpu_torch.netinfo import NetworkInfo
+    from hbbft_tpu_torch.ops import gf16, gf256, rs
+    from hbbft_tpu_torch.parallel.acs import BatchedHoneyBadgerEpoch
+
+    n, f = N_16384, F_16384
+    rng = random.Random(23)
+    t0 = time.perf_counter()
+    nets = NetworkInfo.generate_map(list(range(n)), rng)
+    keygen_s = time.perf_counter() - t0
+    if nets[0].num_faulty() != f:
+        raise AssertionError(f"f = {nets[0].num_faulty()}, expected {f}")
+    contribs = {i: bytes(rng.randrange(256) for _ in range(CONTRIB_BYTES_16384))
+                for i in range(n)}
+    torch.cuda.synchronize()
+    dev = torch.device("cuda", torch.cuda.current_device())  # the coder's key: a tensor's device
+    t0 = time.perf_counter()
+    coder = rs.for_n_f(n, f)
+    coder_host_s = time.perf_counter() - t0
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bits = coder._on(dev)
+    torch.cuda.synchronize()
+    coder_device_s = time.perf_counter() - t0
+    coder_mem = {"resident_bytes": torch.cuda.memory_allocated() - before,
+                 "peak_bytes": torch.cuda.max_memory_allocated() - before,
+                 "packed_matrix_shape": list(bits.shape),
+                 "float32_bit_matrix_bytes": 4 * 16 * coder.data_shards * 16 * coder.parity_shards}
+
+    # the kernel at one chunk's shape: 64 proposers of one 2-byte shard each
+    k = coder.data_shards
+    B = shard_bytes(294 + CONTRIB_BYTES_16384, k)
+    chunk = torch.from_numpy(np.random.default_rng(16).integers(
+        0, 256, (64, k, B), dtype=np.uint8)).to(dev)
+    a = gf16.pack_shards(chunk, bits.shape[-1])
+    kernel = bitplane_work(ctx, 1, a.shape[:-1].numel(), 16 * k, bits.shape[-2], 1)
+    kernel["ms"] = time_ms(torch, lambda: gf256.bitplane_packed(a, bits), 5, rounds=3)
+    kernel["share_of_bound"] = kernel["bound_ms"] / kernel["ms"]
+    ctx["bitplane_n16384"] = kernel
+    del a, chunk
+
+    torch.cuda.reset_peak_memory_stats()
+    ep = BatchedHoneyBadgerEpoch(nets, session_id=b"hb-epoch16384", compact=True,
+                                 device="cuda", encrypt_backend="device")
+    if ep.acs.rbc.coder is not coder:
+        raise AssertionError("the N = 16384 epoch did not take the coder built here")
+    keep = {}
+    res, ctx["launches_n16384"] = _scale_epochs(
+        "N = 16384", ep, nets, contribs, 1, range(2, 3), None, large_epoch_launches(n),
+        keep=keep)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the parity spot-check: the first proposer chunk of the warm run's
+    # framed ciphertexts through stage A, three proposers' shards against
+    # the host encoder
+    rbc = ep.acs.rbc
+    check = [0, 33, 63]
+    framed = rbc.upload_framed(keep.pop("payloads")[:64], dev)
+    shards = rbc.large_stage_a(framed, None, None, 64)[0][check].cpu().numpy()
+    host = framed[check].cpu().numpy()
+    del framed
+    for i, p in enumerate(check):
+        if not np.array_equal(shards[i], coder.encode_np(host[i])):
+            raise AssertionError(f"N = 16384: proposer {p}'s shards differ from encode_np")
+    return {
+        "n": n, "f": f, "k": k, "contribution_bytes": CONTRIB_BYTES_16384, "compact": True,
+        "keygen_s": keygen_s, "coder_host_s": coder_host_s, "coder_device_s": coder_device_s,
+        "coder_device_mem": coder_mem, "bitplane_chunk": kernel, **res,
+        "shards_match_encode_np": check, "peak_mem_bytes": peak,
     }
 
 
@@ -1649,11 +1918,25 @@ def _window_rows(group: str, rows: int, rng, distinct: int = 2048):
     return pts, scalars
 
 
+def _window_slice(group: str, t, off: int, rows: int, total: int):
+    """Rows ``off … off + rows`` of a ladder tensor over ``total`` rows: G1
+    tensors hold a column a row, G2 ones [re | im] halves of ``total``."""
+    if group == "g1":
+        return t[..., off: off + rows]
+    import torch
+
+    return torch.cat((t[..., off: off + rows], t[..., total + off: total + off + rows]), dim=-1)
+
+
 def phase_kernel_ladder_window(ctx):
     """The windowed kernel against its plain version on the card, digit-
-    and inf-exact, G1 and G2, at each case of ``WINDOW_CASES`` (one plain
-    call a case), three rows of each against the native oracle; the timed
-    cases by CUDA events and the profiler, against their bound."""
+    and inf-exact, G1 and G2, at each case of ``WINDOW_CASES``, three rows
+    of each against the native oracle; the timed cases by CUDA events and
+    the profiler, against their bound.  The plain ladder is a loop of
+    small launches whose time hardly grows with the rows, so a group's
+    first case (the N = 64 epoch's shape) has a plain call of its own,
+    timed, and the group's other cases one plain call over all their rows
+    together, each case's rows held against their slice of it."""
     import torch
 
     from hbbft_tpu_torch.crypto import bls12_381 as c
@@ -1674,18 +1957,38 @@ def phase_kernel_ladder_window(ctx):
         else:
             ops, to_dev, from_dev = G.LAZY_FP2_OPS, G.g2_to_device, G.g2_from_device_batch
             to_bytes, oracle_mul = c.g2_to_bytes, nat.bls_g2_mul
+        inputs = [_window_rows(group, rows, rng) for rows, _ in cases]
+
+        def plain(pts, scalars):
+            """The plain ladder over these rows, and its ms."""
+            pt = to_dev(pts, dev)
+            bits = torch.from_numpy(F.bits_batch(scalars, LADDER_BITS)).to(dev)
+            base_inf = torch.tensor([p is None for p in pts], device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = G.scalar_mul_lazy_window_plain(ops, pt, bits, base_inf)
+            torch.cuda.synchronize()
+            return ref, (time.perf_counter() - t0) * 1e3
+
+        # the first case alone, then the rest as one batch
+        refs = {0: (*plain(*inputs[0]), 0, cases[0][0])}
+        rest_pts = [p for pts, _ in inputs[1:] for p in pts]
+        rest_scalars = [s for _, scalars in inputs[1:] for s in scalars]
+        rest_ref, rest_ms = plain(rest_pts, rest_scalars)
+        off = 0
+        for i, (rows, _) in enumerate(cases[1:], start=1):
+            refs[i] = (rest_ref, None, off, len(rest_pts))
+            off += rows
         shapes = {}
-        for rows, timed in cases:
-            pts, scalars = _window_rows(group, rows, rng)
+        for i, ((rows, timed), (pts, scalars)) in enumerate(zip(cases, inputs)):
             pt = to_dev(pts, dev)
             bits = torch.from_numpy(F.bits_batch(scalars, LADDER_BITS)).to(dev)
             base_inf = torch.tensor([p is None for p in pts], device=dev)
             out, inf = G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
+            (ref, ref_inf), plain_ms, off, total = refs[i]
+            ref = [_window_slice(group, r, off, rows, total) for r in ref]
+            ref_inf = ref_inf[off: off + rows]
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ref, ref_inf = G.scalar_mul_lazy_window_plain(ops, pt, bits, base_inf)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
             err = max(int((g.long() - r.long()).abs().max()) for g, r in zip(out, ref))
             max_err = max(max_err, err)
             if err or not torch.equal(inf, ref_inf):
@@ -1707,6 +2010,8 @@ def phase_kernel_ladder_window(ctx):
                      "inf_rows": sum(inf_h), "k": k,
                      **ladder_lazy.window_info(k, group == "g2"),
                      "sass_per_op": ctx["field_sass"][k]}
+            if plain_ms is None:
+                shape["plain_checked_in"] = {"rows": len(rest_pts), "ms": rest_ms}
             if timed:
                 def run():
                     return G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
@@ -2269,15 +2574,17 @@ def phase_dhb(ctx):
             raise AssertionError(f"dhb: the change did not complete: {change}")
         change.append(epoch())
     change_launches = dict(_build.LAUNCHES)
+    ctx["dhb_launches"] = change_launches
     if dhb.era != 1 or dhb.validators != sorted(range(n + 1), key=repr):
         raise AssertionError("dhb: the era did not rotate to the new validator set")
     t_new = dhb.netinfo_map[0].public_key_set().threshold()
     bivar_on_device = B._device_worthwhile((t_new + 1) ** 2, B.DEVICE_BIVAR_MIN_BATCH)
     enc_on_device = B.device_encrypt_worthwhile(n, "cuda")
     want = ladder_launches((n + 1) * bivar_on_device + 2 * len(change) * enc_on_device)
-    got = {k: change_launches[k] for k in LADDER_KERNELS}
+    want["bitplane"] = EPOCH_BITPLANE_LAUNCHES * len(change)  # one RBC round an epoch
+    got = {k: change_launches[k] for k in want}
     if got != want:
-        raise AssertionError(f"dhb: ladder launches {got}, expected {want}")
+        raise AssertionError(f"dhb: launches {got}, expected {want}")
     era1 = [epoch() for _ in range(2)]
     if any(e["era"] != 1 or e["validators"] != n + 1 for e in era1):
         raise AssertionError(f"dhb: new-era epochs {era1}")
@@ -2478,11 +2785,13 @@ def _objsim_run(argv, backend: str, split: bool = False):
     faults = {nid: len(net.nodes[nid].faults_observed) for nid in net.node_ids()}
     if any(faults.values()):
         raise AssertionError(f"{what}: faults logged {faults}")
-    expected = calls["folds"] + calls["share_gens"]  # one ladder launch each
-    if launches.get("ladder_window") != expected or any(
-            v for k, v in launches.items() if k != "ladder_window"):
-        raise AssertionError(f"{what}: launches {launches}, expected ladder_window = "
-                             f"{expected} (device folds + share generations) and no other")
+    # one ladder launch a device fold or share generation, one bit-plane
+    # launch a product of the device erasure backend, no other
+    expected = {**{k: 0 for k in launches}, "ladder_window": calls["folds"] + calls["share_gens"],
+                "bitplane": stats1["device"]["calls"] - stats0["device"]["calls"]}
+    if launches != expected:
+        raise AssertionError(f"{what}: launches {launches}, expected {expected} (device "
+                             "folds + share generations, device erasure products)")
     messages = len(run.trace)
     return run, {
         "backend": backend, "resolved_backend": resolved,
@@ -2518,6 +2827,7 @@ def phase_objsim(ctx):
         out[f"n10_{backend}"] = rec
     if out["n10_device"]["erasure_stats"]["device"]["calls"] == 0:
         raise AssertionError("objsim: the device erasure backend ran no product")
+    ctx["objsim10_device_launches"] = out["n10_device"]["launches"]
 
     def signature(run):
         from hbbft_tpu_torch.protocols import wire
@@ -2835,13 +3145,13 @@ def _vidsim_check(net, run, vid: bool, all_txs):
     if sorted(ledgers[0]) != sorted(all_txs):
         raise AssertionError(f"{what}: {len(ledgers[0])} commits of {len(set(ledgers[0]))} "
                              f"distinct transactions, {len(all_txs)} given: not each once")
-    calls, launches = run["calls"], run["launches"]
-    expected = calls["folds"] + calls["share_gens"]
-    if calls["folds"] == 0 or calls["host_folds"] or launches.get("ladder_window") != expected \
-            or any(v for k, v in launches.items() if k != "ladder_window"):
-        raise AssertionError(f"{what}: launches {launches}, device folds {calls['folds']}, "
-                             f"host folds {calls['host_folds']}")
-    er, coder = run["erasure"], run["coder"]
+    calls, launches, er = run["calls"], run["launches"], run["erasure"]
+    expected = {**{k: 0 for k in launches}, "ladder_window": calls["folds"] + calls["share_gens"],
+                "bitplane": er["device"]["calls"]}
+    if calls["folds"] == 0 or calls["host_folds"] or launches != expected:
+        raise AssertionError(f"{what}: launches {launches}, expected {expected}; device folds "
+                             f"{calls['folds']}, host folds {calls['host_folds']}")
+    coder = run["coder"]
     if er["native"]["calls"] or er["numpy"]["calls"] or \
             er["device"]["calls"] != coder["encodes"] + 2 * coder["reconstructs"]:
         raise AssertionError(f"{what}: erasure products {er}, coder calls {coder}")
@@ -2903,7 +3213,7 @@ def phase_vidsim(ctx):
 # vidsim's N.  encrypt=True, batches of 64, 250-byte transactions (the
 # HoneyBadgerBFT paper's size), each distinct and submitted through a
 # ClusterClient connected to its own node; the flight recorder on; the
-# device erasure backend.  (a) the classic stack, pipeline depth 2, 128
+# device erasure backend.  (a) the classic stack, pipeline depth 2, 64
 # transactions a node; (b) the VID stack, 64 a node, whose payloads the
 # runtimes' own RetrieveServices fetch.  Every share-set check goes through
 # the pump's deferred seam: verify_dec_share_sets, two rlc_fold_g1 a job,
@@ -2948,7 +3258,8 @@ def _netsim_spies(B, rs):
     lock = threading.Lock()
     rec = {"verify_calls": 0, "jobs": 0, "jobs_per_call_max": 0, "verify_s": 0.0,
            "devices": set(), "folds": 0, "host_folds": 0, "fold_s": 0.0,
-           "share_gens": 0, "host_share_gens": 0, "products": 0, "product_s": 0.0}
+           "share_gens": 0, "host_share_gens": 0, "products": 0, "product_s": 0.0,
+           "first_fold_at": None, "first_product_at": None}
     verify, fold, gen = B.verify_dec_share_sets, B.rlc_fold_g1, B.batch_decrypt_share_gen
     apply = rs.ReedSolomon._apply_matrix
 
@@ -2972,6 +3283,7 @@ def _netsim_spies(B, rs):
         with lock:
             rec["folds" if on_device else "host_folds"] += 1
             rec["fold_s"] += dt
+            rec["first_fold_at"] = rec["first_fold_at"] or [time.time() - dt, dt]
         return out
 
     def spy_gen(scalar, cts, device="cuda"):
@@ -2988,6 +3300,7 @@ def _netsim_spies(B, rs):
         with lock:
             rec["products"] += 1
             rec["product_s"] += dt
+            rec["first_product_at"] = rec["first_product_at"] or [time.time() - dt, dt]
         return out
 
     B.verify_dec_share_sets, B.rlc_fold_g1, B.batch_decrypt_share_gen = (
@@ -3149,13 +3462,13 @@ def phase_netsim(ctx):
             stats1 = rs.stats_snapshot()
         er = {b: {k: stats1[b][k] - stats0[b][k] for k in stats1[b]} for b in stats1}
         spy["devices"] = sorted(spy["devices"])
-        expected = 2 * spy["jobs"] + spy["share_gens"]
+        expected = {**{k: 0 for k in got}, "ladder_window": 2 * spy["jobs"] + spy["share_gens"],
+                    "bitplane": er["device"]["calls"]}
         if spy["jobs"] == 0 or spy["host_folds"] or spy["folds"] != 2 * spy["jobs"] \
-                or got.get("ladder_window") != expected \
-                or any(v for k, v in got.items() if k != "ladder_window") \
-                or spy["devices"] != [NETSIM_DEVICE]:
-            raise AssertionError(f"{what}: launches {got}, seams {spy}: want ladder_window = "
-                                 f"2 x jobs (+ device share generations) and no host fold")
+                or got != expected or spy["devices"] != [NETSIM_DEVICE]:
+            raise AssertionError(f"{what}: launches {got}, seams {spy}: want {expected} "
+                                 "(2 x jobs (+ device share generations), one bit-plane "
+                                 "launch a device erasure product) and no host fold")
         if er["native"]["calls"] or er["numpy"]["calls"] or not er["device"]["calls"]:
             raise AssertionError(f"{what}: erasure products {er}")
         rec.update({
@@ -3182,12 +3495,16 @@ EDGE_MAX_TX_BYTES = NETSIM_MAX_TX_BYTES
 EDGE_GATEWAY_LINKS = 2
 # the open-loop load through the gateway: 250-byte distinct transactions (the
 # HoneyBadgerBFT paper's size), 16 clients in waves of 16, 64 tx/s offered
-# for 30 s
+# for 15 s (cut from 30 s for the script's time limit: the post-mortem
+# decodes every journaled message); after the window the generator waits up
+# to 30 s for commits (its report needs one, and the first epochs commit
+# tens of seconds into the load)
 EDGE_TX_BYTES = 250
 EDGE_CLIENTS = 16
 EDGE_WAVE = 16
 EDGE_RATE = 64.0
-EDGE_WINDOW_S = 30.0
+EDGE_WINDOW_S = 15.0
+EDGE_DRAIN_S = 30.0
 EDGE_BOOT_S = 240.0      # every node's /status answering, the gateway's links up
 EDGE_SETTLE_S = 120.0    # after loadgen: every admitted transaction on every node
 EDGE_WATCH_INTERVAL_S = 1.0
@@ -3220,7 +3537,7 @@ def _edge_node(out_path: str, argv) -> int:
     from hbbft_tpu_torch.ops import rs
 
     rec = {"pid": os.getpid(), "cuda_available": torch.cuda.is_available()}
-    held, lags = {}, []
+    held, lags, stalls = {}, [], []
     build_runtime = cluster.build_runtime
 
     async def loop_lag():  # how late a 50 ms sleep wakes: this node's loop stalls
@@ -3228,6 +3545,8 @@ def _edge_node(out_path: str, argv) -> int:
             t = time.perf_counter()
             await asyncio.sleep(0.05)
             lags.append(time.perf_counter() - t - 0.05)
+            if lags[-1] > 1.0 and len(stalls) < 16:  # when, by the wall clock
+                stalls.append([time.time(), lags[-1]])
 
     def spy_build_runtime(cfg, infos, nid, *args, **kw):
         rt = build_runtime(cfg, infos, nid, *args, **kw)
@@ -3238,8 +3557,20 @@ def _edge_node(out_path: str, argv) -> int:
         return rt
 
     cluster.build_runtime = spy_build_runtime
-    stats0 = rs.stats_snapshot()
+    warm_device = cluster.warm_device
+
+    def spy_warm_device(cfg):
+        """The node's device warm-up runs before it serves; its launch and
+        product are not the node's work, and are left out of the record."""
+        warm_device(cfg)
+        _build.reset_launches()
+        held["stats0"] = rs.stats_snapshot()
+        held["spy"].update(products=0, product_s=0.0, first_product_at=None)
+
+    cluster.warm_device = spy_warm_device
+    held["stats0"] = rs.stats_snapshot()
     with _netsim_spies(B, rs) as spy:
+        held["spy"] = spy
         try:
             cluster.main(argv)
         finally:
@@ -3250,10 +3581,11 @@ def _edge_node(out_path: str, argv) -> int:
             rec.update({
                 "launches": dict(_build.LAUNCHES),
                 "seams": {**spy, "devices": sorted(spy["devices"])},
-                "erasure": {b: {k: stats1[b][k] - stats0[b][k] for k in stats1[b]}
+                "erasure": {b: {k: stats1[b][k] - held["stats0"][b][k] for k in stats1[b]}
                             for b in stats1},
                 "loop_lag_s": {"p50": statistics.median(lags) if lags else None,
                                "max": max(lags, default=None), "samples": len(lags)},
+                "stalls_over_1s": stalls,
             })
             if rt is not None:
                 rec["pump_segment_s"] = {k: rt._pump_seg[k].sum for k in NETSIM_SEGMENTS}
@@ -3475,7 +3807,7 @@ def _edge_deployment(root, watchers, n, device, window_s, rate, clients, smi, ke
            "host_cpus": os.cpu_count(), "ephemeral_ports": _ephemeral_ports(),
            "seconds": {}}
     shape = loadgen.LoadShape(tx_bytes=EDGE_TX_BYTES, clients=clients, wave_txs=EDGE_WAVE,
-                              rate_tx_s=rate, duration_s=window_s)
+                              rate_tx_s=rate, duration_s=window_s, drain_s=EDGE_DRAIN_S)
     rec["load"] = {k: getattr(shape, k) for k in ("tx_bytes", "clients", "wave_txs",
                                                   "rate_tx_s", "duration_s", "drain_s")}
     node_targets = ",".join("%s:%d" % cfg.metrics_addr(i) for i in range(n))
@@ -3517,14 +3849,21 @@ def _edge_deployment(root, watchers, n, device, window_s, rate, clients, smi, ke
             rec["seconds"]["boot"] = time.perf_counter() - t0
             gen = loadgen.LoadGenerator(gw_addrs, cfg.cluster_id, shape)
             t1 = time.perf_counter()
+            rec["load_started_at"] = time.time()
             load = asyncio.ensure_future(gen.run())
             await asyncio.sleep(window_s / 2)
-            t_top = time.perf_counter()  # one GET at a time, each waiting out a stalled loop
-            snap = await asyncio.to_thread(
-                _edge_cli, ["hbbft_tpu_torch.obs.top", "--json", "--targets", node_targets,
-                            "--gateways", "%s:%d" % gw_target],
-                os.path.join(root, "top.json"), 240.0)
-            rec["seconds"]["top"] = time.perf_counter() - t_top
+            t_top = time.perf_counter()  # one GET at a time, each waiting on a busy loop
+
+            async def top():
+                out = await asyncio.to_thread(
+                    _edge_cli, ["hbbft_tpu_torch.obs.top", "--json", "--targets", node_targets,
+                                "--gateways", "%s:%d" % gw_target],
+                    os.path.join(root, "top.json"), 240.0)
+                rec["seconds"]["top"] = time.perf_counter() - t_top
+                return out
+
+            # the snapshot, taken under load, finishes while the cluster settles
+            top_task = asyncio.ensure_future(top())
             report = await load
             rec["seconds"]["load"] = time.perf_counter() - t1
             admitted = json.loads(http_get(*gw_target, "/status"))["submissions"]["accepted"]
@@ -3543,6 +3882,7 @@ def _edge_deployment(root, watchers, n, device, window_s, rate, clients, smi, ke
             rec["seconds"]["settle"] = time.perf_counter() - t2
             rec["wall_to_last_commit_s"] = time.perf_counter() - t1
             gw_doc = json.loads(http_get(*gw_target, "/status"))
+            snap = await top_task
             return gen, report, snap, docs, gw_doc
 
         gen, report, snap, docs, gw_doc = asyncio.run(session())
@@ -3651,6 +3991,12 @@ def _edge_deployment(root, watchers, n, device, window_s, rate, clients, smi, ke
                            for s in NETSIM_SEGMENTS},
         "loop_lag_s": {"max_by_process_median": statistics.median(lag_max) if lag_max else None,
                        "max": max(lag_max, default=None)},
+        # wall-clock starts (and seconds) of each process's stalls over 1 s
+        # and of its first device fold and erasure product
+        "stalls_by_process": {i: {"stalls": k.get("stalls_over_1s"),
+                                  "first_fold": k["seams"].get("first_fold_at"),
+                                  "first_product": k["seams"].get("first_product_at")}
+                              for i, k in kids.items()},
         "children": {"cuda_available": sorted({k["cuda_available"] for k in kids.values()}),
                      "device": sorted({k.get("device") for k in kids.values()}),
                      "stack_device": sorted({k.get("stack_device") for k in kids.values()}),
@@ -3698,10 +4044,12 @@ def _edge_deployment(root, watchers, n, device, window_s, rate, clients, smi, ke
             and rec["children"]["device"] == want_dev
             and [d.split(":")[0] for d in rec["children"]["stack_device"]] == want_dev
             and rec["children"]["seam_devices"] == want_dev),
-        "ladder_window = 2 x merged jobs, no host fold, no other launch": not on_card or (
+        "ladder_window = 2 x merged jobs, bitplane = erasure products, no host fold, "
+        "no other launch": not on_card or (
             seams["jobs"] > 0 and not seams["host_folds"] and seams["folds"] == 2 * seams["jobs"]
             and launches.get("ladder_window") == expected
-            and not any(v for k, v in launches.items() if k != "ladder_window")),
+            and launches.get("bitplane") == erasure["device"]["calls"]
+            and not any(v for k, v in launches.items() if k not in ("ladder_window", "bitplane"))),
         "every erasure product on the card": (
             not erasure["native"]["calls"] and not erasure["numpy"]["calls"]
             and erasure["device"]["calls"] > 0),
@@ -3793,12 +4141,13 @@ def edge_campaign(root: str, device: str = EDGE_DEVICE) -> dict:
 def phase_edge22(ctx):
     """The operator's edge on the card: 22 node processes behind a gateway
     under open-loop load, the live view, the post-mortem, and the campaign
-    (module docstring, phase 22)."""
+    (module docstring, phase 25)."""
     import tempfile
 
     import torch
 
     from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.ops import rs
 
     out = {"smi": ctx["smi"]}
     with tempfile.TemporaryDirectory() as root, _erasure_backend("device"):
@@ -3806,9 +4155,17 @@ def phase_edge22(ctx):
                                             keep=ctx["keep_journals"])
         torch.cuda.synchronize()
         _build.reset_launches()
+        products = rs.stats_snapshot()["device"]["calls"]
         out["campaign"] = edge_campaign(os.path.join(root, "campaign"))
         torch.cuda.synchronize()
-        out["campaign"]["launches"] = dict(_build.LAUNCHES)
+        launches = dict(_build.LAUNCHES)
+        products = rs.stats_snapshot()["device"]["calls"] - products
+    # this process's cells: one bit-plane launch a device erasure product,
+    # no other launch (encryption is off in every cell)
+    if launches != {**{k: 0 for k in launches}, "bitplane": products}:
+        raise AssertionError(f"edge22 (campaign): launches {launches}, "
+                             f"{products} device erasure products")
+    out["campaign"].update(launches=launches, device_erasure_products=products)
     ctx["edge22_launches"] = out["deployment"]["launches"]
     ctx["edge22_folds"] = out["deployment"]["seams"]["folds"]
     ctx["campaign_launches"] = out["campaign"]["launches"]
@@ -3849,9 +4206,16 @@ def _mesh_epoch64(torch, mesh, nets, contribs):
         raise AssertionError("mesh epoch: the batch differs from the unsharded epoch's")
     if not np.array_equal(det_m["accepted"], det_s["accepted"]) or det_m["epochs"] != det_s["epochs"]:
         raise AssertionError("mesh epoch: accepted or ABA epochs differ from the unsharded epoch's")
+    # the sharded round encodes once, then decodes and re-encodes once a
+    # receiver chunk (mesh.RECEIVER_CHUNK_BYTES of shards at a time)
+    from hbbft_tpu_torch.parallel.mesh import RECEIVER_CHUNK_BYTES
+
+    B = shard_bytes(CIPHERTEXT_BYTES, N_NODES - 2 * 21)
+    per_chunk = max(1, RECEIVER_CHUNK_BYTES // (N_NODES * N_NODES * B))
+    bitplane = 1 + 2 * -(-N_NODES // per_chunk)
     if launches["ladder_window"] != 2 or launches["sha3_256"] < 1 or \
-            launches["ladder_lazy"] or launches["fp_mul_lazy"]:
-        raise AssertionError(f"mesh epoch launches {launches}")
+            launches["bitplane"] != bitplane or launches["ladder_lazy"] or launches["fp_mul_lazy"]:
+        raise AssertionError(f"mesh epoch launches {launches}, bitplane expected {bitplane}")
     return secs_m, secs_s, launches
 
 
@@ -3979,13 +4343,23 @@ def phase_kernels(ctx):
     lad = ctx["ladder"]
     launches, launches_l = ctx["launches"], ctx["launches_n1024"]
     launches_x, launches_s = ctx["launches_n4096"], ctx["launches_sustained4096"]
+    launches_h = ctx["launches_n16384"]
     win = ctx["window"]
+    bp = ctx["bitplane"]
+
+    def plane(case):
+        """A bit-plane case's times, bound and shape."""
+        return {k: case.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                         "library_float32_matmul_ms", "library_int_mm",
+                                         "share_of_bound", "shape")}
 
     def window_sum(shapes):
         """The windowed kernel's timed ``(group, rows)`` shapes, summed."""
         got = [win[g][r] for g, r in shapes]
         bms, by = bound_ms(ctx, sum(x["bytes"] for x in got), ops_sum([x["ops"] for x in got]))
-        return {"ms": sum(x["ms"] for x in got), "plain_ms": sum(x["plain_ms"] for x in got),
+        plains = [x["plain_ms"] for x in got]
+        return {"ms": sum(x["ms"] for x in got),
+                "plain_ms": None if None in plains else sum(plains),
                 "bound_ms": bms, "bound_by": by,
                 "device_ms_per_launch": {f"{g}_{r}": x["device_ms_per_launch"]
                                          for (g, r), x in zip(shapes, got)},
@@ -4022,6 +4396,7 @@ def phase_kernels(ctx):
             "netsim22": {"launches": ctx["netsim_launches"]["fp_mul_lazy"]},
             "edge22": {"launches": ctx["edge22_launches"].get("fp_mul_lazy", 0)},
             "campaign": {"launches": ctx["campaign_launches"]["fp_mul_lazy"]},
+            "n16384": {"launches": launches_h["fp_mul_lazy"]},
         },
         {
             "name": "sha3_256", "route": "cuda",
@@ -4055,6 +4430,7 @@ def phase_kernels(ctx):
                        "run": "the node processes hash their Merkle trees on the host"},
             "campaign": {"launches": ctx["campaign_launches"]["sha3_256"],
                          "run": "the campaign's cells hash their Merkle trees on the host"},
+            "n16384": {"launches": launches_h["sha3_256"]},
         },
         {
             "name": "ladder_lazy", "route": "cuda",
@@ -4078,6 +4454,7 @@ def phase_kernels(ctx):
             "netsim22": {"launches": ctx["netsim_launches"]["ladder_lazy"]},
             "edge22": {"launches": ctx["edge22_launches"].get("ladder_lazy", 0)},
             "campaign": {"launches": ctx["campaign_launches"]["ladder_lazy"]},
+            "n16384": {"launches": launches_h["ladder_lazy"]},
         },
         {
             "name": "ladder_window", "route": "cuda",
@@ -4123,6 +4500,42 @@ def phase_kernels(ctx):
             "campaign": {"launches": ctx["campaign_launches"]["ladder_window"],
                          "run": "smoke_grid, the equivocator under loss and two socket "
                                 "cells, encryption off: no share-set fold"},
+            "n16384": {"launches": launches_h["ladder_window"]},
+        },
+        {
+            "name": "bitplane", "route": "cuda",
+            "source": "hbbft_tpu_torch/csrc/bitplane.cu",
+            "replaces": "hbbft_tpu/ops/gf256.py:301",
+            "launches": launches["bitplane"],
+            "max_abs_err": bp["max_abs_err"],
+            **plane(bp["cases"]["n64_encode"]),
+            "shape": "the N = 64 epoch's GF(2^8) encode: 64 proposers x 2 924 byte rows, "
+                     "176 bits, 336 columns",
+            "masked_decode": plane(bp["cases"]["masked_decode"]),
+            "n1024": {"launches": launches_l["bitplane"], **plane(bp["cases"]["n1024_chunk"])},
+            "n4096": {"launches": launches_x["bitplane"], **plane(bp["cases"]["n4096_chunk"])},
+            "n16384": {"launches": launches_h["bitplane"], **plane(ctx["bitplane_n16384"])},
+            "sustained4096": {"launches": launches_s["bitplane"], "epochs": SUSTAINED_EPOCHS,
+                              "run": "pipelined"},
+            "qhb64": {"launches": ctx["qhb64_launches"]["bitplane"],
+                      "epochs": QHB_EPOCHS, "run": "pipelined"},
+            "mesh64": {"launches": ctx["mesh64_launches"]["bitplane"],
+                       "run": "the N = 64 epoch sharded over a 1-rank NCCL mesh"},
+            "dhb": {"launches": ctx["dhb_launches"]["bitplane"],
+                    "run": "the era change's epochs"},
+            "objsim22": {"launches": ctx["objsim_launches"]["bitplane"],
+                         "run": "object mode at N = 22, the native erasure backend"},
+            "objsim10_device": {"launches": ctx["objsim10_device_launches"]["bitplane"],
+                                "run": "object mode at N = 10, the device erasure backend: "
+                                       "one launch a product"},
+            "vidsim22": {"launches": ctx["vidsim_launches"]["bitplane"],
+                         "run": "one launch a product of the device erasure backend"},
+            "netsim22": {"launches": ctx["netsim_launches"]["bitplane"],
+                         "run": "one launch a product of the device erasure backend"},
+            "edge22": {"launches": ctx["edge22_launches"].get("bitplane", 0),
+                       "run": "22 node processes, summed: one launch a device erasure product"},
+            "campaign": {"launches": ctx["campaign_launches"]["bitplane"],
+                         "run": "this process's cells: one launch a device erasure product"},
         },
     ]
     return {"kernels": kernels}
@@ -4167,8 +4580,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from hbbft_tpu_torch.parallel.rbc import _frame_shard_len
-
     ctx = {"smi": smi("name,power.limit")}
     # the int32 ceilings: every SM at the maximum clock
     ctx["max_sm_clock_mhz"] = float(smi("clocks.max.sm").split()[0])
@@ -4180,19 +4591,20 @@ def main() -> int:
                    "pipe_ops_per_s": PIPE_PER_CLOCK_PER_SM * ctx["sm_clocks_per_s"],
                    "bytes_per_s": PEAK_BYTES_PER_S}})
     # shard bytes of the epochs' ciphertexts
-    ctx["leaf_bytes"] = _frame_shard_len([bytes(CIPHERTEXT_BYTES)], N_NODES - 2 * 21)
-    ctx["leaf_bytes_large"] = _frame_shard_len([bytes(CIPHERTEXT_BYTES)], N_LARGE - 2 * F_LARGE)
-    ctx["leaf_bytes_4096"] = _frame_shard_len([bytes(294 + CONTRIB_BYTES_4096)],
-                                              N_4096 - 2 * F_4096)
+    ctx["leaf_bytes"] = shard_bytes(CIPHERTEXT_BYTES, N_NODES - 2 * 21)
+    ctx["leaf_bytes_large"] = shard_bytes(CIPHERTEXT_BYTES, N_LARGE - 2 * F_LARGE)
+    ctx["leaf_bytes_4096"] = shard_bytes(294 + CONTRIB_BYTES_4096, N_4096 - 2 * F_4096)
     phases = [("build", phase_build), ("lint", phase_lint),
               ("kernel_field", phase_kernel_field),
               ("kernel_fp_mul_lazy", phase_kernel_fp),
-              ("kernel_sha3", phase_kernel_sha3), ("kernel_ladder", phase_kernel_ladder),
+              ("kernel_sha3", phase_kernel_sha3), ("kernel_bitplane", phase_kernel_bitplane),
+              ("kernel_ladder", phase_kernel_ladder),
               ("kernel_ladder_window", phase_kernel_ladder_window),
               ("ladder_crossover", phase_ladder_crossover),
               ("epoch", phase_epoch), ("profile", phase_profile), ("qhb64", phase_qhb64),
               ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
               ("epoch4096", phase_epoch4096), ("sustained4096", phase_sustained4096),
+              ("epoch16384", phase_epoch16384),
               ("mesh", phase_mesh), ("coin256", phase_coin256), ("dkg256", phase_dkg256), ("dhb", phase_dhb),
               ("objsim", phase_objsim), ("vidsim", phase_vidsim), ("netsim", phase_netsim),
               ("edge22", phase_edge22)]

@@ -4,7 +4,7 @@ The JAX package ``hbbft_tpu`` is the reference; this package computes the
 same epoch (TPKE encrypt → batched RBC → batched ABA → threshold decrypt)
 with plain PyTorch tensors and CUDA kernels written for Hopper
 (``csrc/``: the bitwise and windowed whole-ladder kernels, the lazy field
-multiply, SHA3), and the threshold-crypto batch calls around it
+multiply, SHA3, the GF(2) bit-plane product of the erasure coders), and the threshold-crypto batch calls around it
 (``crypto/batch.py``).  Module names mirror the reference's (``ops/``,
 ``parallel/``, ``crypto/``).
 

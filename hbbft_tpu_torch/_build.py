@@ -48,6 +48,10 @@ KERNELS = {
         "ladder_window.cu", "hb_ladder_window",
         [_VP] * 11 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
     ),
+    "bitplane": (
+        "bitplane.cu", "hb_bitplane",
+        [_VP, _VP, _VP] + [ctypes.c_int] * 4 + [ctypes.c_int64, _VP],
+    ),
 }
 
 NVCC_FLAGS = [

@@ -39,7 +39,18 @@ R = c.R
 
 
 def _lagrange_coeffs_at_zero(xs: Sequence[int]) -> List[int]:
-    """λ_i(0) for interpolation points xs (distinct, nonzero mod r)."""
+    """λ_i(0) for interpolation points xs (distinct, nonzero mod r).
+
+    At the points 1 … m (the shares of a network's first m nodes) λ_i(0) is
+    (−1)^(i−1)·C(m, i), found in one pass; other point sets take the
+    pairwise products, O(m²) multiplications."""
+    m = len(xs)
+    if list(xs) == list(range(1, m + 1)):
+        coeffs, binom = [], 1
+        for i in range(1, m + 1):
+            binom = binom * (m - i + 1) // i  # C(m, i), exact
+            coeffs.append((binom if i % 2 else -binom) % R)
+        return coeffs
     coeffs = []
     for i, xi in enumerate(xs):
         num, den = 1, 1
@@ -697,6 +708,15 @@ class SecretKeySet:
 
     def secret_key_share(self, i: int) -> SecretKeyShare:
         return SecretKeyShare(self.poly.evaluate(i + 1))
+
+    def secret_key_shares(self, count: int) -> List[SecretKeyShare]:
+        """``secret_key_share(i)`` for i < count: the polynomial at 1 …
+        count by Horner's rule in one native call (one share at a time
+        without the native library)."""
+        nat = c._native()
+        if nat is None:
+            return [self.secret_key_share(i) for i in range(count)]
+        return [SecretKeyShare(v) for v in nat.bls_fr_poly_eval_range(self.poly.coeffs, count)]
 
     def public_keys(self) -> PublicKeySet:
         return PublicKeySet(self.poly.commitment())

@@ -1801,6 +1801,35 @@ int bls_g1_add(const uint8_t* a, const uint8_t* b, uint8_t* out) {
   return 0;
 }
 
+// f(1), f(2), ..., f(count) for f with ncoeffs coefficients (32-byte
+// big-endian each, below r, constant term first), by Horner's rule in
+// Montgomery form; out: count 32-byte big-endian values.  The threshold
+// key shares of a network of count nodes (SecretKeySet.secret_key_shares).
+int bls_fr_poly_eval_range(const uint8_t* coeffs_be32, int ncoeffs, int count,
+                           uint8_t* out_be32) {
+  init_all();
+  std::vector<std::array<u64, 4>> coeffs(ncoeffs);
+  for (int k = 0; k < ncoeffs; ++k) {
+    u64 raw[4];
+    fr_from_be32(coeffs_be32 + 32 * k, raw);
+    if (Mod<4>::cmp(raw, BLS_R) >= 0) return -1;
+    FR.from_raw(raw, coeffs[k].data());
+  }
+  for (int i = 0; i < count; ++i) {
+    u64 raw[4] = {(u64)i + 1, 0, 0, 0}, x[4], acc[4] = {0, 0, 0, 0};
+    FR.from_raw(raw, x);
+    for (int k = ncoeffs - 1; k >= 0; --k) {
+      FR.mul(acc, x, acc);
+      FR.add(acc, coeffs[k].data(), acc);
+    }
+    FR.to_raw(acc, raw);
+    for (int l = 0; l < 4; ++l)
+      for (int b = 0; b < 8; ++b)
+        out_be32[32 * i + 8 * l + b] = (uint8_t)(raw[3 - l] >> (56 - 8 * b));
+  }
+  return 0;
+}
+
 int bls_g1_mul(const uint8_t* a, const uint8_t* scalar_be32, uint8_t* out) {
   init_all();
   G1 pa, r;

@@ -103,6 +103,7 @@ class NativeOracle:
             ("bls_g2_in_subgroup", [u8p], i),
             ("bls_tpke_decrypt_batch", [u8p, u8p, u8p, i64p, i, u8p], i),
             ("bls_tpke_check_decrypt_batch", [u8p, u8p, i64p, i, u8p], i),
+            ("bls_fr_poly_eval_range", [u8p, i, i, u8p], i),
         ]:
             fn = getattr(lib, name)
             fn.argtypes = args
@@ -240,6 +241,16 @@ class NativeOracle:
         out = self._buf(97)
         assert self._lib.bls_g1_add(self._p(self._arr(a)), self._p(self._arr(b)), self._p(out)) == 0
         return out.tobytes()
+
+    def bls_fr_poly_eval_range(self, coeffs, count: int) -> list:
+        """[f(1), …, f(count)] mod r for f's coefficients (each below r,
+        constant term first)."""
+        buf = self._arr(b"".join(c.to_bytes(32, "big") for c in coeffs))
+        out = self._buf(32 * count)
+        assert self._lib.bls_fr_poly_eval_range(
+            self._p(buf), len(coeffs), count, self._p(out)) == 0
+        raw = out.tobytes()
+        return [int.from_bytes(raw[32 * i: 32 * i + 32], "big") for i in range(count)]
 
     def bls_g1_mul(self, a: bytes, k: int) -> bytes:
         out = self._buf(97)

@@ -1000,6 +1000,29 @@ async def run_node(cfg: ClusterConfig, nid: int,
     await rt.stop()
 
 
+def warm_device(cfg: ClusterConfig) -> None:
+    """Before a node process serves on a CUDA device: create the context,
+    load every kernel library and, under the ``device`` erasure backend, run
+    one erasure product with the node's coder.  PyTorch loads its CUDA
+    kernels at their first use; left to the first product under load, with
+    many node processes starting on one card, that took seconds, all of them
+    spent by the pump thread while the node's event loop waited."""
+    import numpy as np
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.ops import rs
+
+    torch.empty(1, device=cfg.device)
+    for name in _build.KERNELS:
+        _build.lib(name)
+    if rs.resolve_backend() == "device":
+        coder = rs.for_n_f(cfg.n, (cfg.n - 1) // 3)
+        zeros = np.zeros((coder.data_shards, 2), dtype=np.uint8)
+        coder._apply_matrix(("parity",), coder.parity_matrix, zeros, device=cfg.device)
+    torch.cuda.synchronize(cfg.device)
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(
         description="run ONE hbbft-tpu cluster node of the PyTorch port"
@@ -1115,7 +1138,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise_headroom=args.raise_headroom,
         device=args.device,
     )
-    resolve_device(cfg.device)
+    if resolve_device(cfg.device).type == "cuda":
+        warm_device(cfg)
     if args.join:
         asyncio.run(run_join_node(cfg, args.node_id,
                                   metrics_port=args.metrics_port))

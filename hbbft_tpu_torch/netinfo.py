@@ -38,6 +38,17 @@ class NetworkInfo:
         n = len(self._all_ids)
         self._num_faulty = (n - 1) // 3 if n > 0 else 0
 
+    def _peer(self, our_id: NodeId, secret_key_share=None, secret_key=None) -> "NetworkInfo":
+        """The NetworkInfo of another node of this network: the same (never
+        mutated) id list, index and key tables, shared rather than copied,
+        so that a map of N nodes holds them once instead of N times."""
+        peer = object.__new__(NetworkInfo)
+        peer.__dict__.update(self.__dict__)
+        peer._our_id = our_id
+        peer._secret_key_share = secret_key_share
+        peer._secret_key = secret_key
+        return peer
+
     # -- membership --------------------------------------------------------
     def our_id(self) -> NodeId:
         return self._our_id
@@ -124,13 +135,9 @@ def netinfo_map_from_plain(
     pk_set = sk_set.public_keys()
     sec_keys = {nid: tc.SecretKey(node_secret_keys[nid]) for nid in ids}
     pub_keys = {nid: sk.public_key() for nid, sk in sec_keys.items()}
-    return {
-        nid: NetworkInfo(
-            our_id=nid,
-            public_keys=pub_keys,
-            public_key_set=pk_set,
-            secret_key_share=sk_set.secret_key_share(i),
-            secret_key=sec_keys[nid],
-        )
-        for i, nid in enumerate(ids)
-    }
+    if not ids:
+        return {}
+    shares = sk_set.secret_key_shares(len(ids))
+    first = NetworkInfo(our_id=ids[0], public_keys=pub_keys, public_key_set=pk_set,
+                        secret_key_share=shares[0], secret_key=sec_keys[ids[0]])
+    return {nid: first._peer(nid, shares[i], sec_keys[nid]) for i, nid in enumerate(ids)}

@@ -9,10 +9,12 @@ up to 65536 shards.
 1. **Host (numpy)** — log/exp tables, matrix construction and inversion.
 2. **Device (torch)** — a constant GF(2^16) matrix is GF(2)-linear, so
    applying it is one 0/1 matrix product on (16·k → 16·r) bit vectors
-   (:func:`gf256.bitplane_parity`); symbols are u16, stored as
-   little-endian byte pairs in shards.  PyTorch's ``uint16`` has no ``>>``
-   on the CPU, so symbols and table indices live in int32/int64 and turn
-   into bytes only at the edges.
+   (:func:`gf256.bitplane_packed`, over bits packed 32 a word); symbols
+   are u16, stored as little-endian byte pairs in shards, so a packed data
+   row is the symbols of one shard position across the shards, two a word,
+   and the packed output is the parity symbols.  PyTorch's ``uint16`` has
+   no ``>>`` on the CPU, so symbols and table indices live in int32/int64
+   and turn into bytes only at the edges.
 """
 
 from __future__ import annotations
@@ -222,26 +224,61 @@ def parity_bits_f32(M: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def bytes_to_symbol_bits(x: torch.Tensor) -> torch.Tensor:
-    """uint8 (..., k, B) shards → int8 bits (..., B//2, k*16).
+def parity_bits_packed(M: torch.Tensor) -> torch.Tensor:
+    """:func:`gf256.pack_matrix` of :func:`gf_matrix_to_bits_torch` of one
+    (r, k) matrix, built on ``M``'s device 64 columns of M at a time
+    straight into its int32 words: (r·16, packed_words(16·k)).  Column c of
+    M is bits 16·(c % 2) … of word c // 2 of rows j·16 + b, so a chunk of 64
+    columns fills 32 words, and its temporaries are those of a (r, 64, 16)
+    slice (a (10922, 5462) parity matrix packs into 1.9 GB; its float32 bit
+    matrix would be 61 GB)."""
+    r, k = M.shape
+    words = gf256.packed_words(16 * k)
+    out = torch.zeros((r, 16, words), dtype=torch.int32, device=M.device)
+    shifts = _tables(M.device)[2]
+    for c0 in range(0, k, 64):
+        c1 = min(k, c0 + 64)
+        prod = gf_mul_torch(M[:, c0:c1, None], 1 << shifts)  # (r, c, i): M[j, c]·x^i
+        # half[j, c, b] = Σ_i (bit b of prod[j, c, i]) << i
+        half = torch.zeros((r, c1 - c0, 16), dtype=torch.int64, device=M.device)
+        for i in range(16):
+            half |= ((prod[:, :, i, None] >> shifts) & 1).long() << i
+        if (c1 - c0) % 2:
+            half = torch.nn.functional.pad(half, (0, 0, 0, 1))
+        word = half[:, 0::2] | (half[:, 1::2] << 16)  # (r, c/2, b), below 2^32
+        word = (word ^ 0x80000000) - 0x80000000  # the int32 with those bits
+        out[:, :, c0 // 2: c0 // 2 + word.shape[1]] = word.to(torch.int32).transpose(1, 2)
+    return out.reshape(r * 16, words)
 
-    Symbols are u16 from little-endian byte pairs along the shard; B must
-    be even.  Output layout matches :func:`gf_matrix_to_bits`."""
+
+def pack_shards(x: torch.Tensor, words: int) -> torch.Tensor:
+    """uint8 (..., k, B) shards, B even → packed int32 (..., B//2, words):
+    row t holds the symbols at byte pair t of shards 0 … k−1, symbol c in
+    bits 16c … 16c+15 (:func:`gf_matrix_to_bits`'s input numbering)."""
     *lead, k, B = x.shape
-    shifts = _tables(x.device)[2][:8]
-    sym = x.reshape(*lead, k, B // 2, 2).to(torch.int32)
-    bits = (sym[..., None] >> shifts) & 1  # (..., k, B/2, 2, 8): lo, hi
-    bits = bits.reshape(*lead, k, B // 2, 16).transpose(-3, -2)
-    return bits.reshape(*lead, B // 2, k * 16).to(torch.int8)
+    if x.stride(-1) != 1 or x.storage_offset() % 2 or any(
+            st % 2 for st in x.stride()[:-1]):
+        x = x.clone(memory_format=torch.contiguous_format)
+    sym = x.view(torch.int16)  # (..., k, B/2): little-endian byte pairs
+    out = torch.zeros((*lead, B // 2, 2 * words), dtype=torch.int16, device=x.device)
+    out[..., :k] = sym.transpose(-1, -2)
+    return out.view(torch.int32)
 
 
-def symbol_bits_to_bytes(bits: torch.Tensor, r: int) -> torch.Tensor:
-    """int (..., B//2, r*16) bits → uint8 (..., r, B)."""
-    *lead, half, _ = bits.shape
-    shifts = _tables(bits.device)[2][:8]
-    b = bits.reshape(*lead, half, r, 2, 8).to(torch.int32)
-    sym = (b << shifts).sum(dim=-1)  # (..., B/2, r, 2): lo, hi bytes
-    return sym.transpose(-3, -2).reshape(*lead, r, half * 2).to(torch.uint8)
+def unpack_shards(out: torch.Tensor, r: int) -> torch.Tensor:
+    """The packed product's bytes uint8 (..., B//2, 2r) → r shards uint8
+    (..., r, B)."""
+    sym = out.view(torch.int16).transpose(-1, -2)  # (..., r, B/2)
+    res = torch.empty(sym.shape, dtype=torch.int16, device=sym.device)
+    return res.copy_(sym).view(torch.uint8)
+
+
+def gf_apply_packed(data: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """Apply a packed GF(2^16) bit matrix (:func:`parity_bits_packed`, or
+    ``gf256.pack_matrix`` of :func:`gf_matrix_to_bits`; int32 (..., r*16,
+    W)) to shard bytes uint8 (..., k, B): uint8 (..., r, B)."""
+    r = packed.shape[-2] // 16
+    return unpack_shards(gf256.bitplane_packed(pack_shards(data, packed.shape[-1]), packed), r)
 
 
 def gf_apply_bitmatrix(data: torch.Tensor, bitmat: torch.Tensor) -> torch.Tensor:
@@ -250,6 +287,5 @@ def gf_apply_bitmatrix(data: torch.Tensor, bitmat: torch.Tensor) -> torch.Tensor
     data: uint8 (..., k, B) with even B; bitmat (k*16, r*16) from
     :func:`gf_matrix_to_bits`, or batched (..., k*16, r*16) from
     :func:`gf_matrix_to_bits_torch`.  Returns uint8 (..., r, B), through
-    :func:`gf256.bitplane_parity`."""
-    obits = gf256.bitplane_parity(bytes_to_symbol_bits(data), bitmat)
-    return symbol_bits_to_bytes(obits, bitmat.shape[-1] // 16)
+    :func:`gf256.bitplane_packed`."""
+    return gf_apply_packed(data, gf256.pack_matrix(bitmat.to(data.device)))

@@ -8,16 +8,22 @@ generator 2, the ``reed-solomon-erasure`` crate's field (counterpart of
    and the cached bitmatrix-XOR schedule (the host coder's ``numpy``
    backend, :func:`build_xor_schedule` / :func:`apply_xor_schedule`).
 2. **Device (torch)** — multiplication by a constant GF(2^8) matrix is
-   linear over GF(2), so it lowers to ONE 0/1 matrix product: expand bytes
-   to bits, multiply by the 8×-expanded bit matrix, take parity (``& 1``),
-   repack.  :func:`bitplane_parity` holds that product and its exactness
-   rule for this field and for GF(2^16) (``ops/gf16.py``).
+   linear over GF(2), so it lowers to ONE 0/1 matrix product with the
+   parity taken (``& 1``): the 8×-expanded bit matrix against the data's
+   bits.  Both operands are packed 32 bits a word along the contraction
+   axis, and a shard row of GF(2^8) symbols packed so is its bytes as they
+   are.  :func:`bitplane_packed` is that product for this field and for
+   GF(2^16) (``ops/gf16.py``): on a CUDA tensor the hand-written kernel
+   ``csrc/bitplane.cu``, on a CPU tensor its plain version
+   :func:`bitplane_packed_plain` (a float32 product of the unpacked bits).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from hbbft_tpu_torch import _build
 
 GF_POLY = 0x11D  # x^8 + x^4 + x^3 + x^2 + 1
 GF_GEN = 2
@@ -328,26 +334,134 @@ def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
     return (b << shifts).sum(dim=-1).to(torch.uint8)
 
 
-def bitplane_parity(bits: torch.Tensor, bitmat: torch.Tensor) -> torch.Tensor:
+# Packed bit planes: bit d of a row is bit d % 32 of int32 word d // 32,
+# and a packed row is padded with zero words to a multiple of PACK_WORDS,
+# the kernel's contraction step.  A packed matrix holds one row per OUTPUT
+# column (the transpose of the reference's (d, m) bit matrix), so a
+# column's contraction words are contiguous.
+PACK_WORDS = 8
+
+
+def packed_words(d: int) -> int:
+    """Words of a packed row of ``d`` bits, padding included."""
+    return -(-d // (32 * PACK_WORDS)) * PACK_WORDS
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """0/1 (..., d) → packed int32 (..., packed_words(d))."""
+    d = bits.shape[-1]
+    words = packed_words(d)
+    x = torch.zeros((*bits.shape[:-1], 32 * words), dtype=torch.uint8, device=bits.device)
+    x[..., :d] = bits
+    x = x.reshape(*bits.shape[:-1], 4 * words, 8)
+    byte = x[..., 0].clone()
+    for s in range(1, 8):
+        byte |= x[..., s] << s
+    return byte.view(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, d: int) -> torch.Tensor:
+    """Packed int32 (..., W) → int8 bits (..., d), d ≤ 32·W."""
+    return bytes_to_bits(words.contiguous().view(torch.uint8))[..., :d]
+
+
+def pack_matrix(bitmat: torch.Tensor) -> torch.Tensor:
+    """A 0/1 bit matrix (..., d, m) in the reference's layout → the packed
+    matrix int32 (..., m, packed_words(d)): row c holds column c's bits."""
+    return pack_bits(bitmat.transpose(-1, -2))
+
+
+def unpack_matrix(packed: torch.Tensor, d: int) -> torch.Tensor:
+    """Packed int32 (..., m, W) → the int8 bit matrix (..., d, m)."""
+    return unpack_bits(packed, d).transpose(-1, -2)
+
+
+def pack_bytes(x: torch.Tensor, words: int) -> torch.Tensor:
+    """GF(2^8) symbol rows, uint8 (..., B, k) with k ≤ 4·words → packed
+    int32 (..., B, words): symbol c's bits are bits 8c … 8c+7, so a row's
+    bytes, zero-padded, are its packed words as they stand."""
+    out = torch.zeros((*x.shape[:-1], 4 * words), dtype=torch.uint8, device=x.device)
+    out[..., : x.shape[-1]] = x
+    return out.view(torch.int32)
+
+
+def bitplane_parity_plain(bits: torch.Tensor, bitmat: torch.Tensor) -> torch.Tensor:
     """``(bits @ bitmat) & 1`` for 0/1 operands, exactly: int32 (..., m).
 
-    bits: (..., d) 0/1; bitmat: (d, m) or batched (..., d, m) 0/1, moved to
-    ``bits``'s device.  The GF(2) product of both fields' coders, as one
-    ``torch.matmul`` (CUDA has no int8 product there).  It contracts in
-    float32, and that is exact: each product is 0 or 1, and every partial
-    sum is an integer of at most ``d`` < 2^24, which float32 holds without
-    rounding.  TF32 would be exact as well (0 and 1 survive its 10-bit
-    mantissa, and it accumulates in float32), so the result does not
-    depend on ``torch.backends.cuda.matmul.allow_tf32``, and this function
-    leaves that process-wide setting alone.
-    """
+    bits: (..., d) 0/1; bitmat: (d, m) or batched (..., d, m) 0/1 on
+    ``bits``'s device.  One float32 ``torch.matmul``, and that is exact:
+    each product is 0 or 1, and every partial sum is an integer of at most
+    ``d`` < 2^24, which float32 holds without rounding.  TF32 would be exact
+    as well (0 and 1 survive its 10-bit mantissa, and it accumulates in
+    float32), so the result does not depend on
+    ``torch.backends.cuda.matmul.allow_tf32``, and this function leaves that
+    process-wide setting alone."""
     depth = bits.shape[-1]
     if depth >= 1 << 24:
         raise ValueError(f"a bit-plane sum of {depth} terms is not exact in float32")
-    prod = torch.matmul(
-        bits.to(torch.float32), bitmat.to(device=bits.device, dtype=torch.float32)
-    )
+    prod = torch.matmul(bits.to(torch.float32), bitmat.to(torch.float32))
     return prod.to(torch.int32) & 1
+
+
+def bitplane_packed_plain(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`bitplane_packed`: both operands unpacked
+    to 0/1, :func:`bitplane_parity_plain`, the output packed."""
+    d = 32 * a.shape[-1]
+    out = bitplane_parity_plain(unpack_bits(a, d), unpack_matrix(m, d))
+    return bits_to_bytes(out)
+
+
+def bitplane_packed(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """The GF(2) product over packed bits: uint8 (..., R, cols / 8) whose
+    bit c of row t is ``parity(popcount(a[..., t, :] & m[..., c, :]))``.
+
+    a: packed data int32 (..., R, W); m: packed matrix int32 (cols, W), or
+    batched (..., cols, W) broadcast-compatible with ``a``; W a multiple of
+    ``PACK_WORDS``, cols of 8.  A CUDA tensor goes through the hand-written
+    kernel (``csrc/bitplane.cu``) or raises, a CPU tensor through
+    :func:`bitplane_packed_plain`."""
+    if a.dtype != torch.int32 or m.dtype != torch.int32:
+        raise TypeError(f"bitplane_packed takes int32 words, got {a.dtype}, {m.dtype}")
+    R, W = a.shape[-2:]
+    cols = m.shape[-2]
+    if m.shape[-1] != W or W % PACK_WORDS or cols % 8:
+        raise ValueError(f"bitplane_packed: data {tuple(a.shape)}, matrix {tuple(m.shape)}: "
+                         f"want equal word counts, a multiple of {PACK_WORDS}, and "
+                         "output columns a multiple of 8")
+    if not a.is_cuda:
+        return bitplane_packed_plain(a, m)
+    if m.device != a.device:
+        raise ValueError(f"bitplane_packed: data on {a.device}, matrix on {m.device}")
+    batch = torch.broadcast_shapes(a.shape[:-2], m.shape[:-2])
+    nb = batch.numel()
+    a3 = a.expand(*batch, R, W).reshape(nb, R, W).contiguous()
+    if m.shape[:-2].numel() == 1:
+        # one shared matrix: every batch entry's rows are rows of one product
+        m3, m_stride = m.reshape(cols, W).contiguous(), 0
+        launch_batch, launch_rows = 1, nb * R
+    else:
+        m3, m_stride = m.expand(*batch, cols, W).reshape(nb, cols, W).contiguous(), cols * W
+        launch_batch, launch_rows = nb, R
+    out = torch.empty((*batch, R, cols // 8), dtype=torch.uint8, device=a.device)
+    if nb and R:
+        row_tiles = -(-launch_rows // 64)
+        if row_tiles * launch_batch >= 1 << 31 or -(-cols // 256) >= 1 << 16:
+            raise ValueError(f"bitplane_packed: {nb} x {R} rows, {cols} columns exceed the grid")
+        if a3.data_ptr() % 16 or m3.data_ptr() % 16:
+            raise ValueError("bitplane_packed: operands not 16-byte aligned")
+        rc = _build.lib("bitplane").hb_bitplane(
+            a3.data_ptr(), m3.data_ptr(), out.data_ptr(), launch_batch, launch_rows, W, cols,
+            m_stride, _build.stream_ptr(a3))
+        _build.check("bitplane", rc)
+        _build.count("bitplane")
+    return out
+
+
+def gf_apply_packed(data: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """Apply a packed GF(2^8) bit matrix (``pack_matrix`` of
+    :func:`gf_matrix_to_bits`, int32 (..., r*8, W)) to byte data uint8
+    (..., B, k): uint8 (..., B, r)."""
+    return bitplane_packed(pack_bytes(data, packed.shape[-1]), packed)
 
 
 def gf_apply_bitmatrix(data: torch.Tensor, bitmat: torch.Tensor) -> torch.Tensor:
@@ -356,9 +470,9 @@ def gf_apply_bitmatrix(data: torch.Tensor, bitmat: torch.Tensor) -> torch.Tensor
     data: uint8 (..., B, k); bitmat: (k*8, r*8) from
     :func:`gf_matrix_to_bits`, or batched (..., k*8, r*8) from
     :func:`gf_matrix_to_bits_torch` broadcast-compatible with ``data``.
-    Returns uint8 (..., B, r), through :func:`bitplane_parity`.
+    Returns uint8 (..., B, r), through :func:`bitplane_packed`.
     """
-    return bits_to_bytes(bitplane_parity(bytes_to_bits(data), bitmat))
+    return gf_apply_packed(data, pack_matrix(bitmat.to(data.device)))
 
 
 def gf_mul_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -38,9 +38,9 @@ from hbbft_tpu_torch.ops import gf16, gf256
 #   native — AVX2 pshufb nibble tables over the cached matrix (gf256.cpp
 #            in the native oracle; GF(2^8) only)
 #   numpy  — cached bitmatrix-XOR schedule (packed bit-planes, CSE, tiling)
-#   device — the bit-plane product (gf256.bitplane_parity, float32 matmul)
-#            on the ``device`` the caller passes: on a CUDA device it runs
-#            on the card or raises (the reference's value ``jax``)
+#   device — the bit-plane product over packed bits (gf256.bitplane_packed)
+#            on the ``device`` the caller passes: on a CUDA device it is the
+#            kernel csrc/bitplane.cu or raises (the reference's value ``jax``)
 #   auto   — native when the oracle library loads, else numpy (default)
 #
 # All backends are byte-identical; the switch trades setup cost against
@@ -152,14 +152,15 @@ def resolve_backend() -> str:
 
 
 def _bits_on(cache: _Lru, key, matrix: np.ndarray, to_bits, device):
-    """The float32 bit matrix of ``matrix`` on ``device``, cached per
-    (key, device) in the coder's ``cache``."""
+    """The packed bit matrix of ``matrix`` (``gf256.pack_matrix`` of
+    ``to_bits(matrix)``) on ``device``, cached per (key, device) in the
+    coder's ``cache``."""
     dev = resolve_device(device)
     ck = (key, str(dev))
     bits = cache.get(ck)
     if bits is None:
         bits = cache.put(
-            ck, torch.from_numpy(to_bits(matrix)).to(dev, torch.float32)
+            ck, gf256.pack_matrix(torch.from_numpy(to_bits(matrix)).to(dev))
         )
     return bits
 
@@ -197,7 +198,8 @@ class ReedSolomon:
         # (device backend); decode-side keys carry the erasure pattern
         self._sched_cache = _Lru()
         self._bits_cache = _Lru()
-        self._dev: dict = {}  # device → (parity bits f32, encode matrix u8)
+        self._dev: dict = {}  # device → packed parity bits
+        self._mat_dev: dict = {}  # device → encode matrix u8
 
     def __reduce__(self):
         # a pickled protocol carries the coder's shape, not its caches: the
@@ -205,25 +207,28 @@ class ReedSolomon:
         # shape rebuilds them on its own device
         return (_shared_coder, (type(self), self.data_shards, self.parity_shards))
 
-    def _on(self, device):
+    def _on(self, device) -> torch.Tensor:
+        """The packed parity bit matrix on ``device``, made once a device."""
         hit = self._dev.get(device)
         if hit is None:
-            hit = self._dev[device] = (
-                torch.from_numpy(self._parity_bits).to(device, torch.float32),
-                torch.from_numpy(self.matrix).to(device),
-            )
+            hit = self._dev[device] = gf256.pack_matrix(
+                torch.from_numpy(self._parity_bits).to(resolve_device(device)))
         return hit
 
     def matrix_on(self, device) -> torch.Tensor:
         """The (total, data) uint8 encode matrix as a tensor on ``device``."""
-        return self._on(device)[1]
+        hit = self._mat_dev.get(device)
+        if hit is None:
+            hit = self._mat_dev[device] = torch.from_numpy(self.matrix).to(
+                resolve_device(device))
+        return hit
 
     def encode(self, data: torch.Tensor) -> torch.Tensor:
         """uint8 (..., data_shards, B) → (..., total_shards, B)."""
         if self.parity_shards == 0:
             return data
         d = data.transpose(-1, -2)  # (..., B, k): symbols on the minor axis
-        parity = gf256.gf_apply_bitmatrix(d, self._on(data.device)[0])
+        parity = gf256.gf_apply_packed(d, self._on(data.device))
         return torch.cat([data, parity.transpose(-1, -2)], dim=-2)
 
     def _decode_matrix(self, use: Tuple[int, ...]) -> np.ndarray:
@@ -309,7 +314,7 @@ class ReedSolomon:
             bits = _bits_on(self._bits_cache, key, matrix,
                             gf256.gf_matrix_to_bits, device)
             d = torch.from_numpy(data).to(bits.device)
-            res = gf256.gf_apply_bitmatrix(d.T, bits).T.contiguous().cpu().numpy()
+            res = gf256.gf_apply_packed(d.T, bits).T.contiguous().cpu().numpy()
             if out is None:
                 out = res
             else:
@@ -364,8 +369,10 @@ class ReedSolomon16:
         self._decode_cache = _Lru()
         self._sched_cache = _Lru()
         self._bits_cache = _Lru()
-        # device → (parity bits f32, encode matrix i32), made once per device
+        # device → packed parity bits; device → encode matrix i32; each made
+        # once a device, the matrix only for a caller that asks for it
         self._dev: dict = {}
+        self._mat_dev: dict = {}
 
     __reduce__ = ReedSolomon.__reduce__
 
@@ -373,23 +380,30 @@ class ReedSolomon16:
     def _parity_bits(self) -> np.ndarray:
         """The parity matrix as a host GF(2) bit matrix
         (:func:`gf16.gf_matrix_to_bits`), made at first use: the CPU's
-        encode reads it, a CUDA device builds its own copy on the card."""
+        encode packs it; a CUDA device builds its packed matrix on the card
+        (at N = 16384 this host matrix would be 15.3 GB)."""
         return gf16.gf_matrix_to_bits(self.parity_matrix)
 
-    def _on(self, device):
+    def _on(self, device) -> torch.Tensor:
+        """The packed parity bit matrix on ``device``, made once a device."""
         hit = self._dev.get(device)
         if hit is None:
-            mat = torch.from_numpy(self.matrix.astype(np.int32)).to(device)
-            if mat.device.type == "cuda":
-                bits = gf16.parity_bits_f32(mat[self.data_shards:])
+            dev = resolve_device(device)
+            if dev.type == "cuda":
+                bits = gf16.parity_bits_packed(
+                    torch.from_numpy(self.parity_matrix.astype(np.int32)).to(dev))
             else:
-                bits = torch.from_numpy(self._parity_bits).to(device, torch.float32)
-            hit = self._dev[device] = (bits, mat)
+                bits = gf256.pack_matrix(torch.from_numpy(self._parity_bits))
+            hit = self._dev[device] = bits
         return hit
 
     def matrix_on(self, device) -> torch.Tensor:
         """The (total, data) encode matrix as int32 symbols on ``device``."""
-        return self._on(device)[1]
+        hit = self._mat_dev.get(device)
+        if hit is None:
+            hit = self._mat_dev[device] = torch.from_numpy(
+                self.matrix.astype(np.int32)).to(resolve_device(device))
+        return hit
 
     @staticmethod
     def _to_symbols(shards: np.ndarray) -> np.ndarray:
@@ -429,7 +443,7 @@ class ReedSolomon16:
         """uint8 (..., data_shards, B) → (..., total_shards, B), B even."""
         if self.parity_shards == 0:
             return data
-        parity = gf16.gf_apply_bitmatrix(data, self._on(data.device)[0])
+        parity = gf16.gf_apply_packed(data, self._on(data.device))
         return torch.cat([data, parity], dim=-2)
 
     def decode_matrix(self, use: Tuple[int, ...]) -> np.ndarray:
@@ -462,7 +476,7 @@ class ReedSolomon16:
             bits = _bits_on(self._bits_cache, key, matrix,
                             gf16.gf_matrix_to_bits, device)
             d = torch.from_numpy(data).to(bits.device)
-            out = gf16.gf_apply_bitmatrix(d, bits).contiguous().cpu().numpy()
+            out = gf16.gf_apply_packed(d, bits).contiguous().cpu().numpy()
         else:
             backend = "numpy"  # the native kernel is GF(2^8)-only
             k, B = data.shape

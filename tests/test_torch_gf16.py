@@ -78,13 +78,17 @@ def test_batched_inverse_and_bits_match_jax(k):
 
 
 def test_symbol_bits_roundtrip_and_match_jax():
+    """Shards packed as the bit-plane product reads them are the
+    reference's symbol bits; its packed output bytes unpack to shards as the
+    reference repacks its bits."""
     x = np.random.default_rng(8).integers(0, 256, (3, 5, 10), dtype=np.uint8)
-    bits = tgf.bytes_to_symbol_bits(_t(x))
+    words = tgf8.packed_words(16 * 5)
+    bits = tgf8.unpack_bits(tgf.pack_shards(_t(x), words), 16 * 5)
     assert bits.dtype == torch.int8
     assert np.array_equal(bits.numpy(), np.asarray(jgf.bytes_to_symbol_bits(jnp.asarray(x))))
-    assert np.array_equal(tgf.symbol_bits_to_bytes(bits, 5).numpy(), x)
+    assert np.array_equal(tgf.unpack_shards(tgf8.bits_to_bytes(bits), 5).numpy(), x)
     assert np.array_equal(
-        tgf.symbol_bits_to_bytes(bits, 5).numpy(),
+        tgf.unpack_shards(tgf8.bits_to_bytes(bits), 5).numpy(),
         np.asarray(jgf.symbol_bits_to_bytes(jnp.asarray(bits.numpy()), 5)),
     )
 
@@ -105,13 +109,16 @@ def test_apply_bitmatrix_matches_jax():
 
 def test_bitplane_parity_is_the_gf2_product():
     """The shared contraction of both fields: (bits @ bitmat) & 1, as an
-    integer product computes it."""
+    integer product computes it, by the plain version and by the product
+    over the packed operands."""
     rng = np.random.default_rng(10)
     bits = rng.integers(0, 2, (3, 9, 200), dtype=np.int8)
     mat = rng.integers(0, 2, (200, 24), dtype=np.int8)
     want = (bits.astype(np.int64) @ mat.astype(np.int64)) & 1
-    got = tgf8.bitplane_parity(_t(bits), _t(mat))
+    got = tgf8.bitplane_parity_plain(_t(bits), _t(mat))
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    packed = tgf8.bitplane_packed(tgf8.pack_bits(_t(bits)), tgf8.pack_matrix(_t(mat)))
+    assert np.array_equal(tgf8.bytes_to_bits(packed).numpy(), want)
 
 
 def test_rs16_encode_matches_jax_and_host(coders):

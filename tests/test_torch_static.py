@@ -265,6 +265,28 @@ def test_object_mode_builders_default_to_cuda_and_raise_without_it(monkeypatch):
     assert coder.encode_np(data, device="cpu").shape == (4, 8)
 
 
+def test_bitplane_callers_raise_on_a_cuda_request_without_a_card(monkeypatch):
+    """The bit-plane kernel's operands for a CUDA device (both coders'
+    packed parity matrices and encode matrices) and the ``device`` erasure
+    backend's GF(2^16) decode, which launches it on ``cuda`` unless told,
+    raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    import numpy as np
+
+    from hbbft_tpu_torch.ops import rs
+
+    for coder in (rs.for_n_f(64, 21), rs.for_n_f(259, 86)):
+        for make in (lambda: coder._on("cuda"), lambda: coder.matrix_on("cuda")):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
+    monkeypatch.setenv("HBBFT_ERASURE_BACKEND", "device")
+    coder = rs.for_n_f(259, 86)
+    survivors = np.zeros((coder.data_shards, 4), dtype=np.uint8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        coder.reconstruct_data_np(survivors, tuple(range(coder.data_shards)))
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
