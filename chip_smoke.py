@@ -36,17 +36,22 @@ Phases, one JSON line each; any failure exits non-zero:
    shard each and 2048 interior pairs of 64 bytes; the leaves of one
    64-proposer chunk: 65 536 at N = 1024, 262 144 of 2 bytes at N = 4096),
    timed there by CUDA events and by the profiler's device time per launch.
-6. ``kernel_bitplane``: the GF(2) bit-plane product over packed bits
-   (``csrc/bitplane.cu``) against its plain version (the operands unpacked,
-   a float32 product) on the card, bit-exact, at the shapes its paths give
-   it: the N = 64 epoch's GF(2^8) encode (187 136 byte rows, 176 bits, 336
-   columns), the mesh round's masked decode (1 408 decode matrices of 176 x
-   176 bits over 2 924 rows each), one 64-proposer chunk's GF(2^16) encode
-   at N = 1024 (6 080 rows, 5 472 bits, 10 912 columns) and at N = 4096 (64
-   rows, 21 856 bits, 43 680 columns); each timed by CUDA events beside its
-   bound (one LOP3 a row, column and word), the plain version, and the
-   library calls on the unpacked operands (float32 ``torch.matmul`` and,
-   for one 2-D product, ``torch._int_mm`` of the int8 bits).
+6. ``kernel_bitplane``: first a ``bitplane_probe`` line, the card's 1-bit
+   tensor rates (``mma.sync`` m16n8k256 and ``wgmma`` m64n128k256, .b1
+   .and.popc, on every SM: bit-products a second, against the LOP3 pipe's
+   and the int8 peak's multiply-adds); then the GF(2) bit-plane product
+   over packed bits (``csrc/bitplane.cu``) against its plain version (the
+   operands unpacked, a float32 product) on the card, bit-exact, at the
+   shapes its paths give it: the N = 64 epoch's GF(2^8) encode (187 136
+   byte rows, 176 bits, 336 columns), the mesh round's masked decode (1 408
+   decode matrices of 176 x 176 bits over 2 924 rows each), one
+   64-proposer chunk's GF(2^16) encode at N = 1024 (6 080 rows, 5 472 bits,
+   10 912 columns) and at N = 4096 (64 rows, 21 856 bits, 43 680 columns);
+   each timed by CUDA events beside three bounds (bytes against the
+   measured 1-bit rate, the int8 peak, and one LOP3 a row, column and
+   word), the plain version, the library calls on the unpacked operands
+   (float32 ``torch.matmul`` and, for one 2-D product, ``torch._int_mm`` of
+   the int8 bits), and the launch plan (route, tiles) it took.
 7. ``kernel_ladder``: the bitwise whole-ladder kernel against the plain
    stepwise ladder on the card (plain multiply, no kernel), digit-exact and
    inf-exact, at the N = 64 epoch's encrypt shapes (G1 256 rows, G2 128
@@ -117,7 +122,10 @@ Phases, one JSON line each; any failure exits non-zero:
     keygen timed, the coder's build (the closed-form (16384, 5462) matrix
     on the host, its 1.9 GB packed bit matrix on the card: the float32 one
     would be 61 GB) with its seconds and device bytes, the bit-plane kernel
-    timed at one chunk, then ``epoch4096``'s gates on one timed epoch
+    at one chunk (64 rows, 87 392 bits, 174 752 columns) timed beside its
+    bounds and held bit-exact against its plain version, the plain version
+    and ``torch._int_mm`` of the int8 bits timed in slices of 16 384
+    columns and summed, then ``epoch4096``'s gates on one timed epoch
     (launches: 16 encrypt chunks, 2 ladders each; SHA3 256 chunks × 15
     Merkle levels; bit-plane 256; no profiled epoch) and three proposers'
     shards from stage A against the host ``encode_np``; peak device memory.
@@ -288,6 +296,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # three-input logic op (LOP3), a three-input add and a funnel shift are one
 # instruction each.
 PEAK_BYTES_PER_S = 3.35e12
+# int8 tensor-core peak, dense (H100 SXM data sheet); no 1-bit rate is
+# published for Hopper, so kernel_bitplane measures one (bitplane_probe_rates)
+INT8_PEAK_OPS_PER_S = 1.979e15
 PIPE_PER_CLOCK_PER_SM = 64
 DISPATCH_PER_CLOCK_PER_SM = 128
 
@@ -725,19 +736,105 @@ def phase_kernel_sha3(ctx):
 
 
 def bitplane_work(ctx, batch: int, rows: int, d: int, cols: int, mats: int):
-    """The bit-plane product's bound and its work: ``batch`` x ``rows`` data
-    rows of ``d`` bits against ``cols`` output columns, from ``mats``
-    packed matrices (1 shared, or one a batch entry).  Operations: one LOP3
-    (acc ^= a & m) a (row, column, 32-bit word), all on the ALU pipe.
-    Bytes: each operand's ``ceil(d / 32)`` words a row or column read once,
-    the packed output (a bit a column) written once."""
+    """The bit-plane product's work and its bounds: ``batch`` x ``rows``
+    data rows of ``d`` bits against ``cols`` output columns, from ``mats``
+    packed matrices (1 shared, or one a batch entry).  Bytes: each operand's
+    ``ceil(d / 32)`` words a row or column read once, the packed output (a
+    bit a column) written once.  Three operation rates against them:
+    ``lop3`` (the ALU-pipe rule, kept so the figures compare with the
+    earlier LOP3 kernel's: one LOP3, ``acc ^= a & m``, a row, column and
+    32-bit word on the ALU pipe);
+    ``int8_peak`` (a bit-product as one int8 multiply-add, 2 operations, at
+    the data sheet's 1 979 TOP/s); ``b1_measured`` (a bit-product at the
+    1-bit tensor rate this run's probe measured, ``wgmma`` m64n128k256: no
+    rate is published; measured here when no phase of this run has).
+    ``bound_ms`` is the last, the least time the card was seen to allow."""
+    bitplane_probe_line(ctx)
     words = -(-d // 32)
     n_bytes = 4 * words * (batch * rows + mats * cols) + batch * rows * cols // 8
     n_ops = (batch * rows * words * cols, 0, 0)
-    bms, by = bound_ms(ctx, n_bytes, n_ops)
-    return {"bound_ms": bms, "bound_by": by, "bytes": n_bytes, "lop3": n_ops[0],
-            "shape": {"batch": batch, "rows": rows, "bits": d, "words": words,
-                      "cols": cols, "matrices": mats}}
+    bits = batch * rows * d * cols
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    lop3_ms, lop3_by = bound_ms(ctx, n_bytes, n_ops)
+    rec = {"bytes": n_bytes, "lop3": n_ops[0], "bit_products": bits,
+           "bound_lop3_ms": lop3_ms, "bound_lop3_by": lop3_by,
+           "shape": {"batch": batch, "rows": rows, "bits": d, "words": words,
+                     "cols": cols, "matrices": mats}}
+    for key, t_ops in (("int8_peak", 2 * bits / INT8_PEAK_OPS_PER_S * 1e3),
+                       ("b1_measured", bits / ctx["b1_rate"] * 1e3)):
+        rec[f"bound_{key}_ms"] = max(t_bytes, t_ops)
+        rec[f"bound_{key}_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rec["bound_ms"], rec["bound_by"] = rec["bound_b1_measured_ms"], rec["bound_b1_measured_by"]
+    return rec
+
+
+def bitplane_times(rec: dict, ms: float) -> dict:
+    """``rec`` (from :func:`bitplane_work`) with the kernel's ``ms`` and its
+    share of each bound."""
+    rec["ms"] = ms
+    for key in ("lop3", "int8_peak", "b1_measured"):
+        rec[f"share_of_{key}_bound"] = rec[f"bound_{key}_ms"] / ms
+    rec["share_of_bound"] = rec["bound_ms"] / ms
+    return rec
+
+
+def bitplane_plan_of(a, m) -> dict:
+    """The launch plan ``gf256.bitplane_packed(a, m)`` makes (its route, as
+    its wrapper folds a shared matrix's batch into rows)."""
+    from hbbft_tpu_torch.ops import gf256
+
+    if m.shape[:-2].numel() == 1:
+        batch, rows = 1, a.shape[:-1].numel()
+    else:
+        batch, rows = a.shape[:-2].numel(), a.shape[-2]
+    plan = gf256.bitplane_plan(batch, rows, a.shape[-1], m.shape[-2])
+    plan["route"] = "resident" if plan["resident"] else "streamed"
+    return plan
+
+
+# the probe's work a block a round: mma.sync (8 warps x 8 products of
+# 16 x 8 x 256 bits), wgmma (2 warpgroups x 16 products of 64 x 128 x 256)
+PROBE_BITS = {0: 8 * 8 * 16 * 8 * 256, 1: 2 * 16 * 64 * 128 * 256}
+PROBE_NAMES = {0: "mma_sync_m16n8k256_b1_and_popc", 1: "wgmma_m64n128k256_b1_and_popc"}
+PROBE_BLOCKS_PER_SM = {0: 4, 1: 1}
+
+
+def bitplane_probe_rates(ctx) -> dict:
+    """The card's 1-bit tensor rates, from ``csrc/bitplane.cu``'s probe:
+    bit-products a second of each form, on every SM, over a run of about
+    50 ms (CUDA events, best of 3), against the LOP3 pipe's rate and the
+    int8 peak's multiply-adds."""
+    import torch
+
+    from hbbft_tpu_torch.ops import gf256
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lop3 = 32 * PIPE_PER_CLOCK_PER_SM * ctx["sm_clocks_per_s"]
+    out = {"lop3_bit_products_per_s": lop3, "int8_peak_macs_per_s": INT8_PEAK_OPS_PER_S / 2}
+    for kind, name in PROBE_NAMES.items():
+        blocks = sms * PROBE_BLOCKS_PER_SM[kind]
+        buf = torch.empty(256 * blocks, dtype=torch.int32, device="cuda")
+
+        def run(iters):
+            best = None
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                gf256.bitplane_probe(kind, blocks, iters, buf)
+                stop.record()
+                stop.synchronize()
+                t = start.elapsed_time(stop)
+                best = t if best is None else min(best, t)
+            return best
+
+        first = run(256)
+        iters = max(256, int(256 * 50.0 / max(first, 1e-3)))
+        ms = run(iters)
+        rate = blocks * iters * PROBE_BITS[kind] / (ms / 1e3)
+        out[name] = {"blocks": blocks, "iters": iters, "ms": ms, "bit_products_per_s": rate,
+                     "vs_lop3": rate / lop3, "vs_int8_peak_macs": rate / (INT8_PEAK_OPS_PER_S / 2)}
+    return out
 
 
 def _bitplane_cases(torch, dev):
@@ -796,21 +893,37 @@ def shard_bytes(value_bytes: int, k: int) -> int:
     return _frame_shard_len([bytes(value_bytes)], k)
 
 
+def bitplane_probe_line(ctx) -> None:
+    """Measure the 1-bit tensor rates once a run (``ctx["b1_rate"]``, the
+    faster form's) and print them on a line of their own."""
+    if "b1_rate" in ctx:
+        return
+    probe = bitplane_probe_rates(ctx)
+    ctx["b1_rate"] = max(v["bit_products_per_s"] for k, v in probe.items()
+                         if k in PROBE_NAMES.values())
+    ctx["bitplane_probe"] = probe
+    emit({"bitplane_probe": probe, "b1_rate_for_bounds": ctx["b1_rate"], "card": ctx["smi"]})
+
+
 def phase_kernel_bitplane(ctx):
     """The bit-plane kernel (``csrc/bitplane.cu``) against its plain version
     on the card, bit-exact, at the shapes its paths give it
-    (``_bitplane_cases``); each timed by CUDA events beside its bound, the
-    plain version, and the library calls on the unpacked operands: the
-    float32 ``torch.matmul`` and, where its shape rules allow, ``torch._int_mm``
-    of the int8 bits (each result ``& 1``, as the plain version takes it).
-    At the GF(2^16) shapes the kernel's output is also held against the
-    float32 product with the bit matrix ``gf16.parity_bits_f32`` builds on
-    the card, unpacked by no packing code: a check of the packed matrix the
-    coder built there."""
+    (``_bitplane_cases``), after the probe's line (the card's 1-bit tensor
+    rates); each shape timed by CUDA events beside its three bounds
+    (:func:`bitplane_work`), the plain version, and the library calls on the
+    unpacked operands: the float32 ``torch.matmul`` and, where its shape
+    rules allow, ``torch._int_mm`` of the int8 bits (each result ``& 1``, as
+    the plain version takes it), with the launch plan (route, tiles) it
+    took and the profiler's device time a launch (``ms`` is a call through
+    the wrapper back to back, host work included).  At the GF(2^16) shapes
+    the kernel's output is also held against the float32 product with the
+    bit matrix ``gf16.parity_bits_f32`` builds on the card, unpacked by no
+    packing code: a check of the packed matrix the coder built there."""
     import torch
 
     from hbbft_tpu_torch.ops import gf16, gf256
 
+    bitplane_probe_line(ctx)
     dev = torch.device("cuda")
     cases = _bitplane_cases(torch, dev)
     out, max_err = {}, 0
@@ -830,10 +943,13 @@ def phase_kernel_bitplane(ctx):
         # product; decode matrices, one a batch entry, a product each
         batch = 1 if mats == 1 else a.shape[:-2].numel()
         rows, cols = a.shape[:-1].numel() // batch, m.shape[-2]
-        rec = bitplane_work(ctx, batch, rows, d, cols, mats)
         del ref
-        ms = time_ms(torch, lambda: gf256.bitplane_packed(a, m), 10, rounds=3)
-        plain_ms = time_ms(torch, lambda: gf256.bitplane_packed_plain(a, m), 1, rounds=3)
+        rec = bitplane_times(bitplane_work(ctx, batch, rows, d, cols, mats),
+                             time_ms(torch, lambda: gf256.bitplane_packed(a, m), 10, rounds=3))
+        rec["plan"] = bitplane_plan_of(a, m)
+        rec["device_ms_per_launch"] = device_ms_per_launch(
+            torch, lambda: gf256.bitplane_packed(a, m), "bitplane")
+        rec["plain_ms"] = time_ms(torch, lambda: gf256.bitplane_packed_plain(a, m), 1, rounds=3)
         # the library calls, on the operands unpacked once outside the timing
         bits = gf256.unpack_bits(a, 32 * a.shape[-1]).to(torch.float32)
         mat = gf256.unpack_matrix(m, 32 * a.shape[-1]).to(torch.float32)
@@ -852,9 +968,8 @@ def phase_kernel_bitplane(ctx):
         else:
             int_mm["refused"] = "torch._int_mm takes one 2-D product, not a batch"
         library = [t for t in (f32_ms, int_mm["ms"]) if t is not None]
-        rec.update({"ms": ms, "plain_ms": plain_ms, "library_ms": min(library),
-                    "library_float32_matmul_ms": f32_ms, "library_int_mm": int_mm,
-                    "share_of_bound": rec["bound_ms"] / ms})
+        rec.update({"library_ms": min(library), "library_float32_matmul_ms": f32_ms,
+                    "library_int_mm": int_mm})
         out[name] = rec
         torch.cuda.empty_cache()
     ctx["bitplane"] = {"max_abs_err": max_err, "cases": out}
@@ -1176,7 +1291,7 @@ def phase_epoch(ctx):
 
 # kernels by kind, as substrings of the names torch.profiler records
 KERNEL_KINDS = {"ladder_lazy": "ladder_lazy_kernel", "ladder_window": "ladder_window_kernel",
-                "sha3_256": "sha3_256_kernel", "bitplane": "bitplane_kernel",
+                "sha3_256": "sha3_256_kernel", "bitplane": "bitplane_wgmma",
                 "fp_mul_lazy": "fp_mul_lazy_kernel"}
 
 
@@ -1698,7 +1813,7 @@ def phase_epoch4096(ctx):
 
     nets, contribs, keygen_s = _net4096(ctx)
     torch.cuda.synchronize()
-    dev = torch.device("cuda", torch.cuda.current_device())  # the coder's key: a tensor's device
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
     coder = rs.for_n_f(N_4096, F_4096)
     coder_host_s = time.perf_counter() - t0
@@ -1735,7 +1850,8 @@ def phase_epoch16384(ctx):
     on the card.  Keygen and the GF(2^16) coder's build (the closed-form
     matrix on the host, the packed bit matrix on the card) timed, with the
     coder's device bytes; the bit-plane kernel timed at one 64-proposer
-    chunk; ``epoch4096``'s gates on one timed epoch (no profiled one); and
+    chunk, held against its plain version (``_bitplane_sliced``);
+    ``epoch4096``'s gates on one timed epoch (no profiled one); and
     the parity of three proposers' framed ciphertexts, as the epoch's
     stage A encodes them on the card, against the host ``encode_np``."""
     import numpy as np
@@ -1755,7 +1871,7 @@ def phase_epoch16384(ctx):
     contribs = {i: bytes(rng.randrange(256) for _ in range(CONTRIB_BYTES_16384))
                 for i in range(n)}
     torch.cuda.synchronize()
-    dev = torch.device("cuda", torch.cuda.current_device())  # the coder's key: a tensor's device
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
     coder = rs.for_n_f(n, f)
     coder_host_s = time.perf_counter() - t0
@@ -1776,9 +1892,12 @@ def phase_epoch16384(ctx):
     chunk = torch.from_numpy(np.random.default_rng(16).integers(
         0, 256, (64, k, B), dtype=np.uint8)).to(dev)
     a = gf16.pack_shards(chunk, bits.shape[-1])
-    kernel = bitplane_work(ctx, 1, a.shape[:-1].numel(), 16 * k, bits.shape[-2], 1)
-    kernel["ms"] = time_ms(torch, lambda: gf256.bitplane_packed(a, bits), 5, rounds=3)
-    kernel["share_of_bound"] = kernel["bound_ms"] / kernel["ms"]
+    kernel = bitplane_times(bitplane_work(ctx, 1, a.shape[:-1].numel(), 16 * k, bits.shape[-2], 1),
+                            time_ms(torch, lambda: gf256.bitplane_packed(a, bits), 5, rounds=3))
+    kernel["plan"] = bitplane_plan_of(a, bits)
+    kernel["device_ms_per_launch"] = device_ms_per_launch(
+        torch, lambda: gf256.bitplane_packed(a, bits), "bitplane", calls=5)
+    kernel.update(_bitplane_sliced(torch, a, bits))
     ctx["bitplane_n16384"] = kernel
     del a, chunk
 
@@ -1811,6 +1930,41 @@ def phase_epoch16384(ctx):
         "coder_device_mem": coder_mem, "bitplane_chunk": kernel, **res,
         "shards_match_encode_np": check, "peak_mem_bytes": peak,
     }
+
+
+BITPLANE_SLICE_COLS = 16384
+
+
+def _bitplane_sliced(torch, a, m) -> dict:
+    """The kernel's product of ``a`` against a matrix too large to unpack
+    whole (N = 16384: 15.3 GB of int8 bits, 61 GB of float32), held against
+    the plain version and timed beside it and ``torch._int_mm`` of the int8
+    bits in slices of BITPLANE_SLICE_COLS columns: the plain and library
+    times are the slices' times summed (each slice's operands unpacked
+    outside its timing)."""
+    from hbbft_tpu_torch.ops import gf256
+
+    got = gf256.bitplane_packed(a, m)
+    rows, words, cols = a.shape[:-1].numel(), a.shape[-1], m.shape[-2]
+    bits8 = gf256.unpack_bits(a, 32 * words).reshape(rows, -1).contiguous()
+    plain_ms = int_mm_ms = 0.0
+    for c0 in range(0, cols, BITPLANE_SLICE_COLS):
+        c1 = min(cols, c0 + BITPLANE_SLICE_COLS)
+        part = m[c0:c1]
+        ref = gf256.bitplane_packed_plain(a, part)
+        if not torch.equal(ref, got[..., c0 // 8:c1 // 8]):
+            raise AssertionError(f"bitplane kernel differs from its plain version at "
+                                 f"columns {c0} … {c1 - 1}")
+        del ref
+        plain_ms += time_ms(torch, lambda: gf256.bitplane_packed_plain(a, part), 1, rounds=3)
+        torch.cuda.empty_cache()
+        mat8 = gf256.unpack_bits(part, 32 * words).reshape(c1 - c0, -1).t()
+        int_mm_ms += time_ms(torch, lambda: torch._int_mm(bits8, mat8) & 1, 1, rounds=3)
+        del mat8
+        torch.cuda.empty_cache()
+    return {"max_abs_err": 0, "plain_ms": plain_ms, "library_ms": int_mm_ms,
+            "library_int_mm": {"ms": int_mm_ms, "slices": -(-cols // BITPLANE_SLICE_COLS),
+                               "slice_cols": BITPLANE_SLICE_COLS}}
 
 
 def phase_sustained4096(ctx):
@@ -4351,7 +4505,9 @@ def phase_kernels(ctx):
         """A bit-plane case's times, bound and shape."""
         return {k: case.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                          "library_float32_matmul_ms", "library_int_mm",
-                                         "share_of_bound", "shape")}
+                                         "share_of_bound", "bound_lop3_ms", "bound_int8_peak_ms",
+                                         "share_of_lop3_bound", "share_of_int8_peak_bound",
+                                         "device_ms_per_launch", "plan", "shape")}
 
     def window_sum(shapes):
         """The windowed kernel's timed ``(group, rows)`` shapes, summed."""

@@ -20,6 +20,8 @@ generator 2, the ``reed-solomon-erasure`` crate's field (counterpart of
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -432,20 +434,24 @@ def bitplane_packed(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         return bitplane_packed_plain(a, m)
     if m.device != a.device:
         raise ValueError(f"bitplane_packed: data on {a.device}, matrix on {m.device}")
-    batch = torch.broadcast_shapes(a.shape[:-2], m.shape[:-2])
-    nb = batch.numel()
-    a3 = a.expand(*batch, R, W).reshape(nb, R, W).contiguous()
-    if m.shape[:-2].numel() == 1:
-        # one shared matrix: every batch entry's rows are rows of one product
-        m3, m_stride = m.reshape(cols, W).contiguous(), 0
-        launch_batch, launch_rows = 1, nb * R
+    if m.dim() == 2 and a.is_contiguous() and m.is_contiguous():
+        # the common call, a shared matrix: no views to make
+        batch, a3, m3 = a.shape[:-2], a, m
     else:
-        m3, m_stride = m.expand(*batch, cols, W).reshape(nb, cols, W).contiguous(), cols * W
-        launch_batch, launch_rows = nb, R
+        batch = torch.broadcast_shapes(a.shape[:-2], m.shape[:-2])
+        a3 = a.expand(*batch, R, W).contiguous()
+        m3 = m if m.shape[:-2].numel() == 1 else m.expand(*batch, cols, W)
+        m3 = m3.contiguous()
+    nb = batch.numel()
+    if m3.shape[:-2].numel() == 1:
+        # one shared matrix: every batch entry's rows are rows of one product
+        m_stride, launch_batch, launch_rows = 0, 1, nb * R
+    else:
+        m_stride, launch_batch, launch_rows = cols * W, nb, R
     out = torch.empty((*batch, R, cols // 8), dtype=torch.uint8, device=a.device)
-    if nb and R:
-        row_tiles = -(-launch_rows // 64)
-        if row_tiles * launch_batch >= 1 << 31 or -(-cols // 256) >= 1 << 16:
+    if nb and R and cols:
+        # TMA row coordinates and the grid are 32-bit
+        if nb * R >= 1 << 31 or (nb if m_stride else 1) * cols >= 1 << 31:
             raise ValueError(f"bitplane_packed: {nb} x {R} rows, {cols} columns exceed the grid")
         if a3.data_ptr() % 16 or m3.data_ptr() % 16:
             raise ValueError("bitplane_packed: operands not 16-byte aligned")
@@ -455,6 +461,44 @@ def bitplane_packed(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         _build.check("bitplane", rc)
         _build.count("bitplane")
     return out
+
+
+_PLAN_KEYS = ("resident", "box_steps", "stages", "ring", "row_chunks", "col_tiles",
+              "col_chunks", "blocks_per_sm", "sms", "smem_bytes", "blocks")
+
+
+def _bitplane_fn(name: str, argtypes):
+    fn = getattr(_build.lib("bitplane"), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def bitplane_plan(batch: int, rows: int, words: int, cols: int) -> dict:
+    """The launch :func:`bitplane_packed` makes on the current CUDA device
+    for ``batch`` products of ``rows`` rows (a shared matrix: one product of
+    every entry's rows), ``words`` words and ``cols`` columns: the route
+    (``resident`` 1: the matrix stays in shared memory; 0: it streams), k256
+    steps a TMA box, stages a row tile, ring slots, row-tile ranges an
+    entry, column tiles, 128-column chunks a block, blocks an SM, SMs,
+    dynamic shared bytes, blocks."""
+    out = (ctypes.c_int64 * len(_PLAN_KEYS))()
+    rc = _bitplane_fn("hb_bitplane_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p])(
+        batch, rows, words, cols, ctypes.addressof(out))
+    _build.check("bitplane", rc)
+    return dict(zip(_PLAN_KEYS, out))
+
+
+def bitplane_probe(kind: int, blocks: int, iters: int, out: torch.Tensor) -> None:
+    """Launch ``csrc/bitplane.cu``'s rate probe (on no path): ``blocks``
+    blocks of 256 threads, each running ``iters`` rounds of independent
+    1-bit products, ``kind`` 0 ``mma.sync`` m16n8k256 (64 a warp a round),
+    1 ``wgmma`` m64n128k256 (16 a warpgroup a round); ``out`` is CUDA int32
+    of ``256 * blocks`` words."""
+    if not out.is_cuda or out.dtype != torch.int32 or out.numel() < 256 * blocks:
+        raise ValueError("bitplane_probe: out must be CUDA int32 of 256 words a block")
+    rc = _bitplane_fn("hb_bitplane_probe", [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)(
+        kind, blocks, iters, out.data_ptr(), _build.stream_ptr(out))
+    _build.check("bitplane", rc)
 
 
 def gf_apply_packed(data: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:

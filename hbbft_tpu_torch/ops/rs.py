@@ -151,12 +151,23 @@ def resolve_backend() -> str:
     return mode
 
 
+def device_key(device) -> torch.device:
+    """``device`` as the one key the coders' device caches use: a CUDA
+    device without an index is the current one, so ``"cuda"``,
+    ``torch.device("cuda")`` and ``cuda:0`` (when 0 is current) share a
+    cached matrix (1.91 GB packed at N = 16384)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _bits_on(cache: _Lru, key, matrix: np.ndarray, to_bits, device):
     """The packed bit matrix of ``matrix`` (``gf256.pack_matrix`` of
     ``to_bits(matrix)``) on ``device``, cached per (key, device) in the
     coder's ``cache``."""
-    dev = resolve_device(device)
-    ck = (key, str(dev))
+    dev = device_key(device)
+    ck = (key, dev)
     bits = cache.get(ck)
     if bits is None:
         bits = cache.put(
@@ -208,19 +219,21 @@ class ReedSolomon:
         return (_shared_coder, (type(self), self.data_shards, self.parity_shards))
 
     def _on(self, device) -> torch.Tensor:
-        """The packed parity bit matrix on ``device``, made once a device."""
-        hit = self._dev.get(device)
+        """The packed parity bit matrix on ``device``, made once a device
+        (keyed by :func:`device_key`)."""
+        dev = device_key(device)
+        hit = self._dev.get(dev)
         if hit is None:
-            hit = self._dev[device] = gf256.pack_matrix(
-                torch.from_numpy(self._parity_bits).to(resolve_device(device)))
+            hit = self._dev[dev] = gf256.pack_matrix(
+                torch.from_numpy(self._parity_bits).to(dev))
         return hit
 
     def matrix_on(self, device) -> torch.Tensor:
         """The (total, data) uint8 encode matrix as a tensor on ``device``."""
-        hit = self._mat_dev.get(device)
+        dev = device_key(device)
+        hit = self._mat_dev.get(dev)
         if hit is None:
-            hit = self._mat_dev[device] = torch.from_numpy(self.matrix).to(
-                resolve_device(device))
+            hit = self._mat_dev[dev] = torch.from_numpy(self.matrix).to(dev)
         return hit
 
     def encode(self, data: torch.Tensor) -> torch.Tensor:
@@ -385,24 +398,26 @@ class ReedSolomon16:
         return gf16.gf_matrix_to_bits(self.parity_matrix)
 
     def _on(self, device) -> torch.Tensor:
-        """The packed parity bit matrix on ``device``, made once a device."""
-        hit = self._dev.get(device)
+        """The packed parity bit matrix on ``device``, made once a device
+        (keyed by :func:`device_key`)."""
+        dev = device_key(device)
+        hit = self._dev.get(dev)
         if hit is None:
-            dev = resolve_device(device)
             if dev.type == "cuda":
                 bits = gf16.parity_bits_packed(
                     torch.from_numpy(self.parity_matrix.astype(np.int32)).to(dev))
             else:
                 bits = gf256.pack_matrix(torch.from_numpy(self._parity_bits))
-            hit = self._dev[device] = bits
+            hit = self._dev[dev] = bits
         return hit
 
     def matrix_on(self, device) -> torch.Tensor:
         """The (total, data) encode matrix as int32 symbols on ``device``."""
-        hit = self._mat_dev.get(device)
+        dev = device_key(device)
+        hit = self._mat_dev.get(dev)
         if hit is None:
-            hit = self._mat_dev[device] = torch.from_numpy(
-                self.matrix.astype(np.int32)).to(resolve_device(device))
+            hit = self._mat_dev[dev] = torch.from_numpy(
+                self.matrix.astype(np.int32)).to(dev)
         return hit
 
     @staticmethod
