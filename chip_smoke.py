@@ -8,6 +8,7 @@ on one NVIDIA card.
     python3 chip_smoke.py --phases qhb64,dhb --dhb-n 16   # the drivers; dhb at N = 16
     python3 chip_smoke.py --phases epoch4096,sustained4096   # BASELINE config 5
     python3 chip_smoke.py --phases kernel_bitplane,epoch16384   # the GF(2) kernel; N = 16384
+    python3 chip_smoke.py --phases kernel_ladder_mxu   # the 8-bit field's ladder kernel, its route
     python3 chip_smoke.py --phases objsim   # object mode: the simulation CLI
     python3 chip_smoke.py --phases vidsim   # the node stack on VirtualNet at N = 22
     python3 chip_smoke.py --phases netsim   # the node runtime over localhost TCP at N = 22
@@ -16,7 +17,7 @@ on one NVIDIA card.
 
 Phases, one JSON line each; any failure exits non-zero:
 
-1. ``build``: nvcc builds the five kernels from ``hbbft_tpu_torch/csrc``
+1. ``build``: nvcc builds the six kernels from ``hbbft_tpu_torch/csrc``
    for sm_90a (one nvcc per source, started together) while the native BLS
    oracle builds beside them.
 2. ``lint``: the port's static analysis, ``python -m hbbft_tpu_torch.lint
@@ -73,37 +74,50 @@ Phases, one JSON line each; any failure exits non-zero:
    G2, ms of one launch each by CUDA events, the windowed one also at each
    K beside the K it picks (every K's result equal): why every dispatch
    runs the windowed kernel, and at which K.
-10. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
+10. ``kernel_ladder_mxu``: the windowed ladder over the reference's 8-bit
+   field (``csrc/ladder_mxu.cu``: one warp a row, each product's digit
+   convolution and fold as ``mma.sync`` f16 products on the tensor cores)
+   against its plain version, digit- and inf-exact, at G1 16 / 256 and G2
+   128 / 256 rows (a share-set fold, the N = 64 encrypt, coin256), with the
+   edge rows, three rows each against the native oracle, and at ragged rows
+   and short scalars (G1 37 rows of 8 bits, G2 5 of 20); each timed by CUDA
+   events and the profiler against its bound, beside ``ladder_window`` at
+   the same rows.  Then, under ``HBBFT_FIELD_BACKEND=mxu`` (restored after),
+   one N = 64 epoch (ciphertexts equal to the native oracle's, every
+   contribution back) and one coin256 verify (True; False with a forged
+   share), every ladder a ``ladder_mxu`` launch and none a ``ladder_window``
+   one.  The default route (``MXU_MAX_BATCH`` None) never launches it.
+11. ``epoch``: HoneyBadger epochs at N = 64 (f = 21, 64 000-byte
    contributions) with the TPKE encrypt ladders on the card: a warm run
    whose ciphertexts are held against the native oracle's, then 5 timed
    runs, each with every kernel's launch counter reset just before it and
    read just after (2 windowed ladder launches, SHA3 21, 3 bit-plane
    products: the encode, the batched decode, the re-encode; Kernel 1 none).
-11. ``profile``: the device's busy share (kernel time from torch.profiler
+12. ``profile``: the device's busy share (kernel time from torch.profiler
    over wall time) and kernel launches, over the whole encrypt phase and
    over ACS + decrypt.
-12. ``qhb64``: ``BatchedQueueingHoneyBadger`` at N = 64, 256 transactions
+13. ``qhb64``: ``BatchedQueueingHoneyBadger`` at N = 64, 256 transactions
    of 250 B a node an epoch (65 028-byte contributions) from a queue of
    1 024 of its own, device encrypt route: 8 ``run_epochs_pipelined``
    epochs then ``run_to_empty``, and a second one's 8 sequential
    ``run_epoch``s; every transaction committed once, launch totals of 2
    windowed ladders and 21 SHA3 batches an epoch, the first pipelined
    epoch's ciphertexts equal to the native oracle's.
-13. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
+14. ``rbc_large``: the N > 256 scale path, ``BatchedRbc(1024, 341)`` over
    1 024 proposers with the GF(2^16) coder: full delivery (every verdict
    and value; four proposers' shards equal to the host ``encode_np`` and
    their roots to hashlib's), data shards altered after the commit (the
    straggler decode and the re-check stage), a framing fault, each with
    one bit-plane launch a proposer chunk and stage (16, 32, 16); and the
    device time of the GF(2^16) encode of one 64-proposer chunk.
-14. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
+15. ``epoch1024``: HoneyBadger epochs at N = 1024 (f = 341, the same
     contributions) through the scale path: keygen, a warm run held against
     the native oracle's ciphertexts, 1 timed run with launch counts as
     derived from the code (ladder 2, SHA3 16 chunks × 11 Merkle levels,
     bit-plane 16, one encode a chunk; Kernel 1 none), and one profiled run
     for the device's idle share and the device time of the bit-plane
     kernel, SHA3 and the ladders.
-15. ``epoch4096``: BASELINE config 5, HoneyBadger epochs at N = 4096 (f =
+16. ``epoch4096``: BASELINE config 5, HoneyBadger epochs at N = 4096 (f =
     1365, one 64-byte transaction a node, ``compact=True``, as bench.py's
     ``bench_hb_epoch4096``): keygen, the GF(2^16) coder's build (closed-form
     matrix on the host, packed bit matrix on the card) with its seconds and
@@ -112,12 +126,12 @@ Phases, one JSON line each; any failure exits non-zero:
     derives them: 4 encrypt chunks of 1 024 proposers, 2 ladders each; SHA3
     64 chunks × 13 Merkle levels; bit-plane 64; Kernel 1 none; a profiled
     run).
-16. ``sustained4096``: bench.py's ``sustained4096`` session on the same
+17. ``sustained4096``: bench.py's ``sustained4096`` session on the same
     network: the encrypt route calibrated (native against device, one warm
     encrypt phase each, the faster kept), then SUSTAINED_EPOCHS epochs with
     epoch e+1's encrypt on a worker thread while epoch e runs; every batch
     equal to the contributions, launches as derived; epochs/s and drift.
-17. ``epoch16384``: bench.py's ``bench_hb_epoch16384`` (N = 16384, f = 5461,
+18. ``epoch16384``: bench.py's ``bench_hb_epoch16384`` (N = 16384, f = 5461,
     32 bytes a node, ``compact=True``, the keys from ``Random(23)``): the
     keygen timed, the coder's build (the closed-form (16384, 5462) matrix
     on the host, its 1.9 GB packed bit matrix on the card: the float32 one
@@ -129,7 +143,7 @@ Phases, one JSON line each; any failure exits non-zero:
     (launches: 16 encrypt chunks, 2 ladders each; SHA3 256 chunks × 15
     Merkle levels; bit-plane 256; no profiled epoch) and three proposers'
     shards from stage A against the host ``encode_np``; peak device memory.
-18. ``mesh``: the device mesh (``parallel/mesh.py``) under an NCCL world
+19. ``mesh``: the device mesh (``parallel/mesh.py``) under an NCCL world
     of one rank on cuda:0, its process group destroyed at the end: the N =
     64 epoch sharded over a 1-D and a 1 × 1 ``("dcn", "ici")`` mesh held
     equal to the unsharded epoch on the same inputs (ciphertext bytes,
@@ -140,14 +154,14 @@ Phases, one JSON line each; any failure exits non-zero:
     ``STATS`` deltas, sharded and unsharded seconds; then
     ``graft_entry.dryrun_multichip(1, quick=True)``, its JSON line first.
     World size 1 moves nothing over a collective: no speed claim.
-19. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
+20. ``coin256``: the common coin at N = 256, f = 85 (BASELINE config 3):
     ``batch_verify_sig_shares`` over 256 signature shares (True; False with
     one share over another message; median of 3, its split into host
     dispatch, ladder wait, fetch + host fold and pairing check; the
     ladders' device ms and launches), the MSMs against the host's sums, and
     ``batch_verify_dec_shares`` over 256 decryption shares (True; False
     with one tampered).
-20. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
+21. ``dkg256``: ``commitment_row(com, 3)`` at t = 85 on the production and
     the forced device route against ``com.row(3)``, ``commitment_eval`` and
     ``bivar_commitment`` on the forced route against their host values,
     and the sweeps ``crypto/batch.py``'s routing thresholds are set from,
@@ -156,25 +170,26 @@ Phases, one JSON line each; any failure exits non-zero:
     route was faster at every point up to t = 181), the RLC fold and the
     share generation by rows, TPKE encrypt and decrypt of 64 000-byte
     messages at N = 64, and the encrypt without the native oracle.
-21. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 8 (``--dhb-n``):
+22. ``dhb``: ``BatchedQueueingDynamicHoneyBadger`` at N = 8 (``--dhb-n``):
     plain epochs with queued transactions, a vote adding one validator,
     epochs until the change completes, 2 epochs of the new era; the new
     key set's threshold decrypt, no transaction committed twice, and the
     driver pickled after the rotation (no CUDA tensor in it) restored with
     ``device="cpu"`` to the same next batch.  The DKG is host work of
     order N³, which bounds N here, not the card.
-22. ``objsim``: object mode (QHB over DHB over ``VirtualNet``) through the
+23. ``objsim``: object mode (QHB over DHB over ``VirtualNet``) through the
     simulation CLI on the card: (a) N = 10 at the defaults of upstream
     ``examples/simulation.rs`` (1 000 transactions of 10 B, batches of 100,
     the JAX CLI's cost model) under the native and the device erasure
     backend — every node's ledger equal, each transaction committed once,
     no fault, and both runs equal in ledgers, message counts, wire bytes
-    and virtual time; (b) N = 22, f = 7 (220 transactions, batch 220):
+    and virtual time; (b) N = 22, f = 7 (22 transactions, one a node, so one
+    epoch; batch 220):
     the same ledger gates, one ``ladder_window`` launch for each share-set
     fold of ≥ 8 rows, one bit-plane launch a product of the device erasure
     backend and none else, the first 32 folds held against the host loop;
     wall seconds, cranks, messages and messages/s.
-23. ``vidsim``: the node stack without the network at N = 22, f = 7, on
+24. ``vidsim``: the node stack without the network at N = 22, f = 7, on
     ``VirtualNet`` under the device erasure backend, every node built as
     the reference's ``net/cluster.py`` ``build_algo`` builds it with
     encryption always, 64 transactions of 250 B a node, node 21's links
@@ -190,7 +205,7 @@ Phases, one JSON line each; any failure exits non-zero:
     erasure product and no other launch, every erasure product on the
     device; crank-loop seconds, cranks, messages,
     virtual time, the shaper's counters, VID's counters and a host split.
-24. ``netsim``: the node runtime over real sockets at N = 22, f = 7: an
+25. ``netsim``: the node runtime over real sockets at N = 22, f = 7: an
     in-process ``LocalCluster`` (``ClusterConfig(device="cuda")``, 22
     ``NodeRuntime``s, each with its own pump thread, over localhost TCP on
     ephemeral ports), ``encrypt=True``, batches of 64, the flight recorder
@@ -210,7 +225,7 @@ Phases, one JSON line each; any failure exits non-zero:
     10 s.  Wall time to the last commit, tx/s, client latency p50/p99, the
     pumps' segment seconds, merged calls and jobs a call, ms a fold,
     erasure bytes/s.
-25. ``edge22``: the deployment ``python -m hbbft_tpu_torch.cluster_launch``
+26. ``edge22``: the deployment ``python -m hbbft_tpu_torch.cluster_launch``
     starts, on the card. (a) 22 node **processes** (``ClusterConfig(n=22,
     seed=0, device="cuda", encrypt=True, batch_size=64, pipeline_depth=2)``,
     the flight recorder on, the device erasure backend, ``netsim``'s 5 s
@@ -247,7 +262,7 @@ Phases, one JSON line each; any failure exits non-zero:
     first epoch, the socket cells clean and committing with the flood
     attributed to the claimed identity and every spoofed hello refused and
     attributed to the attacker's endpoint.
-26. ``kernels``: every kernel with its launches, errors and times; then the
+27. ``kernels``: every kernel with its launches, errors and times; then the
     whole run's seconds.
 
 Bounds are the larger of bytes over HBM's rate and int32 instructions over
@@ -339,7 +354,7 @@ EPOCH_SHA3_LAUNCHES = 21
 # bit-plane launches in one N = 64 epoch (full delivery): the encode, the
 # batched survivor decode, the re-encode
 EPOCH_BITPLANE_LAUNCHES = 3
-LADDER_KERNELS = ("ladder_lazy", "ladder_window")
+LADDER_KERNELS = ("ladder_lazy", "ladder_window", "ladder_mxu")
 # the scale path's configuration: N = 1024, f = 341 (k = 342 data shards of
 # 190 B for the same 64 000-byte contributions), through the GF(2^16) coder
 N_LARGE = 1024
@@ -371,10 +386,12 @@ def merkle_root_levels(n: int) -> int:
     return levels
 
 
-def ladder_launches(n: int) -> dict:
-    """Launches of both ladder kernels for ``n`` windowed ladders: every
-    dispatch runs the windowed kernel, none the bitwise one."""
-    return {"ladder_lazy": 0, "ladder_window": n}
+def ladder_launches(n: int, kernel: str = "ladder_window") -> dict:
+    """Launches of the ladder kernels for ``n`` windowed ladders: every
+    dispatch runs the windowed kernel of its field (``ladder_window``, the
+    13-bit default; ``ladder_mxu`` under ``HBBFT_FIELD_BACKEND=mxu``), none
+    the bitwise one."""
+    return {**{k: 0 for k in LADDER_KERNELS}, kernel: n}
 
 
 def encrypt_ladder_launches(n: int) -> dict:
@@ -1291,6 +1308,7 @@ def phase_epoch(ctx):
 
 # kernels by kind, as substrings of the names torch.profiler records
 KERNEL_KINDS = {"ladder_lazy": "ladder_lazy_kernel", "ladder_window": "ladder_window_kernel",
+                "ladder_mxu": "ladder_mxu_kernel",
                 "sha3_256": "sha3_256_kernel", "bitplane": "bitplane_wgmma",
                 "fp_mul_lazy": "fp_mul_lazy_kernel"}
 
@@ -2265,6 +2283,274 @@ def phase_ladder_crossover(ctx):
             "smi": ctx["smi"]}
 
 
+# The 8-bit field's windowed kernel (csrc/ladder_mxu.cu): its rows on the
+# paths the reference sends to that field (ladders of at most 2 048 rows):
+# G1 16 (a share-set fold), G1 256 and G2 128 (the N = 64 encrypt), G2 256
+# (coin256).  Its work for the bound: each product's convolution (49 × 49)
+# and fold (51 × 49) multiply-adds on the tensor cores at the f16 dense rate,
+# and the field's int32 instructions as FP_KIND_OPS counts them for the
+# 13-bit field: a rough carry pass 2 ALU instructions a digit; the squeeze 3
+# passes over 52 digits, then 3 rounds of 3 × 49 multiply-adds and 3
+# passes; a product 3 passes over 100 digits, 49 adds (the fold into the low
+# digits) and the squeeze; a sum or difference 49 (three-input) adds and the
+# squeeze; a select 49.
+MXU_CASES = {"g1": (16, 4 * N_NODES), "g2": (2 * N_NODES, COIN_N)}
+MXU_RAGGED = (("g1", 37, 8), ("g2", 5, 20))  # (group, rows, bits), held exact, not timed
+F16_DENSE_FLOPS = 989e12  # H100 SXM data sheet, dense
+MXU_NL = 49
+MXU_MUL_MACS = MXU_NL * MXU_NL + 51 * MXU_NL
+MXU_SQUEEZE_OPS = (12 * 52 * CARRY_OPS, 3 * 3 * MXU_NL, 0)
+MXU_FP_KIND_OPS = {
+    "MUL": (3 * 100 * CARRY_OPS + MXU_SQUEEZE_OPS[0], MXU_SQUEEZE_OPS[1], MXU_NL),
+    "ADD": (MXU_SQUEEZE_OPS[0], MXU_SQUEEZE_OPS[1], MXU_NL),
+    "SUB": (MXU_SQUEEZE_OPS[0], MXU_SQUEEZE_OPS[1], MXU_NL),
+    "SEL": (0, 0, MXU_NL),
+}
+
+
+class _FieldOpCount:
+    """An ops table that counts a point formula's field operations."""
+
+    def __init__(self):
+        self.n = {"mul": 0, "sqr": 0, "add": 0, "sub": 0}
+
+    def _op(kind):
+        def op(self, *args):
+            self.n[kind] += 1
+            return 0
+        return op
+
+    mul, sqr, add, sub = _op("mul"), _op("sqr"), _op("add"), _op("sub")
+
+
+def mxu_ladder_work(group: str, rows: int, nbits: int):
+    """(tensor-core multiply-adds, int32 (ALU, multiply-add, either)) of
+    the 8-bit field's windowed ladder: the table (7 doublings, 7
+    additions), per window 4 doublings, one addition and 3 point selects;
+    an Fp2 product is 3 Fp products, 3 sums and 2 differences, a square 2,
+    2 and 1, an Fp2 sum or difference 2 of Fp, a select 2."""
+    from hbbft_tpu_torch.ops import gcurve as G
+
+    def count(formula, *pts):
+        o = _FieldOpCount()
+        formula(o, *pts)
+        return o.n
+
+    dbl = count(G.point_double, (0, 0, 0))
+    add = count(G.point_add_raw, (0, 0, 0), (0, 0, 0))
+    windows = nbits // 4
+    n = {k: 7 * (dbl[k] + add[k]) + windows * (4 * dbl[k] + add[k]) for k in dbl}
+    sel = 9 * windows
+    if group == "g2":
+        fp = {"MUL": 3 * n["mul"] + 2 * n["sqr"],
+              "ADD": 3 * n["mul"] + 2 * n["sqr"] + 2 * n["add"],
+              "SUB": 2 * n["mul"] + n["sqr"] + 2 * n["sub"], "SEL": 2 * sel}
+    else:
+        fp = {"MUL": n["mul"] + n["sqr"], "ADD": n["add"], "SUB": n["sub"], "SEL": sel}
+    ops = ops_sum([tuple(fp[k] * x for x in MXU_FP_KIND_OPS[k]) for k in fp], rows)
+    return fp["MUL"] * MXU_MUL_MACS * rows, ops
+
+
+def mxu_bound_ms(ctx, n_bytes: float, macs: int, ops):
+    """The larger of ``bound_ms`` (bytes, int32 pipes) and the tensor-core
+    multiply-adds at the f16 dense rate."""
+    ms, by = bound_ms(ctx, n_bytes, ops)
+    tc_ms = 2 * macs / F16_DENSE_FLOPS * 1e3
+    return (tc_ms, "operations") if tc_ms > ms else (ms, by)
+
+
+@contextlib.contextmanager
+def _field_backend(value: str):
+    before = os.environ.get("HBBFT_FIELD_BACKEND")
+    os.environ["HBBFT_FIELD_BACKEND"] = value
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["HBBFT_FIELD_BACKEND"]
+        else:
+            os.environ["HBBFT_FIELD_BACKEND"] = before
+
+
+def phase_kernel_ladder_mxu(ctx):
+    """The 8-bit field's windowed kernel (``csrc/ladder_mxu.cu``) against
+    its plain version on the card, digit- and inf-exact, at each case of
+    ``MXU_CASES`` (one plain call a group over all its cases' rows), with
+    ``_window_rows``' edge rows and three rows against the native oracle,
+    and at the ragged ``MXU_RAGGED`` cases; each case of ``MXU_CASES`` timed
+    by CUDA events and the profiler against its bound, and
+    ``ladder_window`` at the same rows (the crossover).  Then, under
+    ``HBBFT_FIELD_BACKEND=mxu``, one N = 64 epoch (its ciphertexts equal
+    to the native oracle's, every contribution back, every instance
+    accepted) and one coin256 verify (True; False with a forged share),
+    each with its ladders all ``ladder_mxu`` launches."""
+    import numpy as np
+    import torch
+
+    from hbbft_tpu_torch import _build
+    from hbbft_tpu_torch.crypto import batch as B
+    from hbbft_tpu_torch.crypto import bls12_381 as c
+    from hbbft_tpu_torch.crypto import tc
+    from hbbft_tpu_torch.native import get_oracle
+    from hbbft_tpu_torch.ops import fp381 as F
+    from hbbft_tpu_torch.ops import fp381_mxu as M
+    from hbbft_tpu_torch.ops import gcurve as G
+    from hbbft_tpu_torch.ops import ladder_lazy, ladder_mxu
+
+    dev = torch.device("cuda")
+    nat = get_oracle()
+    rng = random.Random(17)
+    out_groups, max_err = {}, 0
+    for group, cases in MXU_CASES.items():
+        fp2 = group == "g2"
+        ops, lazy_ops = ((G.MXU_FP2_OPS, G.LAZY_FP2_OPS) if fp2
+                         else (G.MXU_FP_OPS, G.LAZY_FP_OPS))
+        to_dev, from_dev = ((G.g2_to_device, G.g2_from_device_batch) if fp2
+                            else (G.g1_to_device, G.g1_from_device_batch))
+        to_bytes, oracle_mul = ((c.g2_to_bytes, nat.bls_g2_mul) if fp2
+                                else (c.g1_to_bytes, nat.bls_g1_mul))
+        inputs = [_window_rows(group, rows, rng) for rows in cases]
+
+        def operands(pts, scalars, rep):
+            return (to_dev(pts, dev, rep=rep),
+                    torch.from_numpy(F.bits_batch(scalars, LADDER_BITS)).to(dev),
+                    torch.tensor([p is None for p in pts], device=dev))
+
+        all_pts = [p for pts, _ in inputs for p in pts]
+        pt, bits, base_inf = operands(all_pts, [s for _, sc in inputs for s in sc], M)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, ref_inf = G.scalar_mul_lazy_window_plain(ops, pt, bits, base_inf)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        shapes, off = {}, 0
+        for rows, (pts, scalars) in zip(cases, inputs):
+            pt, bits, base_inf = operands(pts, scalars, M)
+
+            def run():
+                return G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
+
+            got, inf = run()
+            want = [_window_slice(group, r, off, rows, len(all_pts)) for r in ref]
+            torch.cuda.synchronize()
+            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+            max_err = max(max_err, err)
+            if err or not torch.equal(inf, ref_inf[off: off + rows]):
+                raise AssertionError(f"{group} ladder_mxu differs from its plain version "
+                                     f"at R={rows}")
+            inf_h = inf.cpu().tolist()
+            if inf_h != [s == 0 or p is None for p, s in zip(pts, scalars)]:
+                raise AssertionError(f"{group} ladder_mxu: wrong infinity rows at R={rows}")
+            host = from_dev(got, rep=M)
+            for r in (0, 1, 2):
+                have = to_bytes(None if inf_h[r] else host[r])
+                need = (to_bytes(None) if pts[r] is None
+                        else oracle_mul(to_bytes(pts[r]), scalars[r]))
+                if have != need:
+                    raise AssertionError(f"{group} ladder_mxu differs from the native oracle, "
+                                         f"row {r} of {rows}")
+            recorded = {}
+            dev_ms = device_ms_per_launch(torch, run, "ladder_mxu_kernel", calls=5,
+                                          detail=recorded)
+            ev_ms = event_ms_per_launch(torch, run)
+            pt13, bits13, inf13 = operands(pts, scalars, F)
+            window_ms = event_ms_per_launch(
+                torch, lambda: G.scalar_mul_lazy_window(lazy_ops, pt13, bits13, inf13))
+            n_bytes = 2 * 3 * MXU_NL * got[0].shape[1] * 4 + rows * LADDER_BITS * 4 + 2 * rows
+            macs, n_ops = mxu_ladder_work(group, rows, LADDER_BITS)
+            bms, by = mxu_bound_ms(ctx, n_bytes, macs, n_ops)
+            shapes[rows] = {
+                "rows": rows, "bits": LADDER_BITS, "inf_rows": sum(inf_h),
+                "ms": ev_ms, "event_ms_per_launch": ev_ms, "device_ms_per_launch": dev_ms,
+                "profiler": recorded, "bound_ms": bms, "bound_by": by,
+                "share_of_bound": bms / ev_ms, "bytes": n_bytes, "tensor_macs": macs,
+                "int32_ops": n_ops, "ladder_window_ms": window_ms,
+                "mxu_over_window": ev_ms / window_ms,
+                "ladder_window_k": ladder_lazy.window_k(rows, fp2)}
+            off += rows
+        out_groups[group] = {"plain_ms": plain_ms, "plain_rows": len(all_pts),
+                             "info": ladder_mxu.info(fp2), "shapes": shapes}
+    for group, rows, nbits in MXU_RAGGED:
+        ops = G.MXU_FP2_OPS if group == "g2" else G.MXU_FP_OPS
+        pts, _ = _ladder_rows(group, rows, rng)
+        scalars = [rng.getrandbits(nbits) for _ in pts[:-1]] + [0]
+        pt = (G.g2_to_device if group == "g2" else G.g1_to_device)(pts, dev, rep=M)
+        bits = torch.from_numpy(F.bits_batch(scalars, nbits)).to(dev)
+        base_inf = torch.tensor([p is None for p in pts], device=dev)
+        got, inf = G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
+        want, want_inf = G.scalar_mul_lazy_window_plain(ops, pt, bits, base_inf)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(g, w) for g, w in zip(got, want)) and torch.equal(inf, want_inf)):
+            raise AssertionError(f"{group} ladder_mxu differs from its plain version at "
+                                 f"R={rows}, {nbits} bits")
+
+    # the reference's route to the 8-bit field, forced on the paths
+    if "epoch" in ctx:
+        ep, _, contribs = ctx["epoch"]
+        nets = ep.netinfo_map
+    else:
+        from hbbft_tpu_torch.parallel.acs import BatchedHoneyBadgerEpoch
+
+        nets, contribs = _epoch64_inputs()
+        ep = BatchedHoneyBadgerEpoch(nets, device="cuda", encrypt_backend="device")
+    pk = nets[0].public_key_set().public_key()
+    native = [ct.to_bytes() for ct in tc.tpke_encrypt_batch(
+        pk, [contribs[i] for i in ep.ids], random.Random(13), backend="native", device="cpu")]
+    n_ladders = encrypt_ladder_launches(N_NODES)["ladder_window"]
+    sks = tc.SecretKeySet.random(COIN_F, random.Random(98))
+    pks = sks.public_keys()
+    msg = b"coin-epoch-mxu"
+    pairs = [(pks.public_key_share(i), sks.secret_key_share(i).sign(msg)) for i in range(COIN_N)]
+    forged = list(pairs)
+    forged[5] = (pairs[5][0], sks.secret_key_share(5).sign(b"coin-epoch-other"))
+    with _field_backend("mxu"):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        payloads = ep.encrypt_phase(contribs, random.Random(13))
+        torch.cuda.synchronize()
+        encrypt_launches = dict(_build.LAUNCHES)
+        if payloads != native:
+            raise AssertionError("mxu: the device-route ciphertexts differ from the native "
+                                 "oracle's")
+        check_launches({k: encrypt_launches[k] for k in LADDER_KERNELS},
+                       ladder_launches(n_ladders, "ladder_mxu"), "mxu encrypt")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        batch, detail = ep.run(contribs, random.Random(14), timer=time.perf_counter)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        epoch_launches_mxu = dict(_build.LAUNCHES)
+        if batch != contribs or not np.asarray(detail["accepted"]).all():
+            raise AssertionError("mxu: the N = 64 epoch did not return every contribution")
+        check_launches(epoch_launches_mxu,
+                       {**epoch_launches(N_NODES), **ladder_launches(n_ladders, "ladder_mxu")},
+                       "mxu epoch")
+        crng = random.Random(15)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        coin_ok = B.batch_verify_sig_shares(pairs, msg, crng)
+        coin_s = time.perf_counter() - t0
+        coin_launches = {k: _build.LAUNCHES[k] for k in LADDER_KERNELS}
+        if coin_ok is not True or B.batch_verify_sig_shares(forged, msg, crng) is not False:
+            raise AssertionError("mxu: coin256's verify is wrong")
+        check_launches(coin_launches, ladder_launches(2, "ladder_mxu"), "mxu coin256")
+    ctx["mxu"] = {"max_abs_err": max_err, **out_groups}
+    ctx["mxu_launches"] = {"epoch": epoch_launches_mxu["ladder_mxu"],
+                           "coin256": coin_launches["ladder_mxu"]}
+    return {"max_abs_err": max_err, "tolerance": 0, "digit_exact": True, "inf_exact": True,
+            "by_group": {g: {**v, "shapes": {str(r): x for r, x in v["shapes"].items()}}
+                         for g, v in out_groups.items()},
+            "epoch64": {"field_backend": "mxu", "ciphertexts_match_native": True,
+                        "batch_ok": True, "epoch_s": epoch_s, "phase_s": detail["phase_s"],
+                        "launches": epoch_launches_mxu},
+            "coin256": {"field_backend": "mxu", "valid": True, "forged_share_rejected": True,
+                        "verify_s": coin_s, "launches": coin_launches},
+            "field_backend_after": os.environ.get("HBBFT_FIELD_BACKEND"),
+            "smi": ctx["smi"]}
+
+
 def _ladder_launch_counts():
     from hbbft_tpu_torch import _build
 
@@ -2791,7 +3077,9 @@ def phase_dhb(ctx):
 # smallest N whose t + 1 reaches DEVICE_FOLD_MIN_BATCH = 8, so every
 # threshold-decrypt share-set fold runs the windowed ladder kernel.
 OBJSIM_A = ["--nodes", "10", "--txs", "1000", "--tx-size", "10", "--batch-size", "100"]
-OBJSIM_B = ["--nodes", "22", "--txs", "220", "--tx-size", "10", "--batch-size", "220"]
+# (b) one transaction a node: each node proposes at its first input, so all
+# 22 commit in one epoch (220 took two, the first with one a node)
+OBJSIM_B = ["--nodes", "22", "--txs", "22", "--tx-size", "10", "--batch-size", "220"]
 OBJSIM_HOST_CHECKED_FOLDS = 32
 OBJSIM_DEVICE = "cuda"
 OBJSIM_FOLD_REPS = 21
@@ -4527,6 +4815,25 @@ def phase_kernels(ctx):
                          + f", {LADDER_BITS} bits"}
 
     epoch_w = window_sum([("g1", 4 * N_NODES), ("g2", 2 * N_NODES)])
+    mxu = ctx["mxu"]
+
+    def mxu_sum(shapes):
+        """The 8-bit field's kernel at its timed ``(group, rows)`` shapes,
+        summed; ``plain_ms`` the plain calls of those groups (each over all
+        of its group's cases)."""
+        got = [mxu[g]["shapes"][r] for g, r in shapes]
+        bms = sum(x["bound_ms"] for x in got)
+        return {"ms": sum(x["ms"] for x in got),
+                "plain_ms": sum(mxu[g]["plain_ms"] for g in {g for g, _ in shapes}),
+                "plain_rows": sum(mxu[g]["plain_rows"] for g in {g for g, _ in shapes}),
+                "bound_ms": bms, "bound_by": max(got, key=lambda x: x["bound_ms"])["bound_by"],
+                "share_of_bound": bms / sum(x["event_ms_per_launch"] for x in got),
+                "device_ms_per_launch": {f"{g}_{r}": x["device_ms_per_launch"]
+                                         for (g, r), x in zip(shapes, got)},
+                "ladder_window_ms": {f"{g}_{r}": x["ladder_window_ms"]
+                                     for (g, r), x in zip(shapes, got)},
+                "shape": " + ".join(f"{g.upper()} {r} rows" for g, r in shapes)
+                         + f", {LADDER_BITS} bits"}
 
     def times(d):
         return {k: d.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -4659,6 +4966,30 @@ def phase_kernels(ctx):
             "n16384": {"launches": launches_h["ladder_window"]},
         },
         {
+            "name": "ladder_mxu", "route": "cuda",
+            "source": "hbbft_tpu_torch/csrc/ladder_mxu.cu",
+            "replaces": "hbbft_tpu/ops/gcurve.py:288 (over hbbft_tpu/ops/fp381_mxu.py:178)",
+            "launches": ctx["mxu_launches"]["epoch"],
+            "max_abs_err": mxu["max_abs_err"],
+            "library_ms": None,
+            **mxu_sum([("g1", 4 * N_NODES), ("g2", 2 * N_NODES)]),
+            "run": "the N = 64 epoch under HBBFT_FIELD_BACKEND=mxu",
+            "default_route": {"launches": launches["ladder_mxu"],
+                              "run": "the N = 64 epoch: MXU_MAX_BATCH is None"},
+            "coin256": {"launches": ctx["mxu_launches"]["coin256"],
+                        **mxu_sum([("g2", COIN_N)]),
+                        "run": "coin256's verify under HBBFT_FIELD_BACKEND=mxu"},
+            "fold16": mxu_sum([("g1", 16)]),
+            "n1024": {"launches": launches_l["ladder_mxu"]},
+            "n4096": {"launches": launches_x["ladder_mxu"]},
+            "objsim22": {"launches": ctx["objsim_launches"]["ladder_mxu"]},
+            "vidsim22": {"launches": ctx["vidsim_launches"]["ladder_mxu"]},
+            "netsim22": {"launches": ctx["netsim_launches"]["ladder_mxu"]},
+            "edge22": {"launches": ctx["edge22_launches"].get("ladder_mxu", 0)},
+            "campaign": {"launches": ctx["campaign_launches"]["ladder_mxu"]},
+            "n16384": {"launches": launches_h["ladder_mxu"]},
+        },
+        {
             "name": "bitplane", "route": "cuda",
             "source": "hbbft_tpu_torch/csrc/bitplane.cu",
             "replaces": "hbbft_tpu/ops/gf256.py:301",
@@ -4757,6 +5088,7 @@ def main() -> int:
               ("kernel_ladder", phase_kernel_ladder),
               ("kernel_ladder_window", phase_kernel_ladder_window),
               ("ladder_crossover", phase_ladder_crossover),
+              ("kernel_ladder_mxu", phase_kernel_ladder_mxu),
               ("epoch", phase_epoch), ("profile", phase_profile), ("qhb64", phase_qhb64),
               ("rbc_large", phase_rbc_large), ("epoch1024", phase_epoch1024),
               ("epoch4096", phase_epoch4096), ("sustained4096", phase_sustained4096),

@@ -52,6 +52,10 @@ KERNELS = {
         "bitplane.cu", "hb_bitplane",
         [_VP, _VP, _VP] + [ctypes.c_int] * 4 + [ctypes.c_int64, _VP],
     ),
+    "ladder_mxu": (
+        "ladder_mxu.cu", "hb_ladder_mxu",
+        [_VP] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
+    ),
 }
 
 NVCC_FLAGS = [

@@ -8,11 +8,16 @@ Counterpart of ``hbbft_tpu/crypto/batch.py``:
   (``_msm_dispatch``/``_msm_collect``, ``msm_g1``/``msm_g2``: one 132-bit
   ladder over 128-bit randomizers, folded on the host) and the GLV/GLS-split
   full-range scalar muls (``_mul_batch_dispatch``/``_mul_batch_collect``,
-  ``g1_mul_batch``/``g2_mul_batch``).  Every dispatch runs the lazy field
-  (:mod:`hbbft_tpu_torch.ops.gcurve`; on the card one launch of the
-  4-bit windowed ladder kernel; the reference's TPU-measured choice
-  between two field representations does not change residues, so it is
-  not carried over);
+  ``g1_mul_batch``/``g2_mul_batch``).  Every dispatch runs the 4-bit
+  windowed ladder (:mod:`hbbft_tpu_torch.ops.gcurve`; on the card one
+  launch of a hand-written kernel) over one of the reference's two lazy
+  fields, chosen by ``_field_rep``: the 13-bit one (``ops/fp381.py``,
+  ``csrc/ladder_window.cu``) or the 8-bit one (``ops/fp381_mxu.py``,
+  ``csrc/ladder_mxu.cu``).  The two give different lazy digits; the host
+  points they canonicalize to are equal.  ``HBBFT_FIELD_BACKEND=lazy|mxu``
+  forces one, as in the reference; by default the port runs the 13-bit
+  field at every size (``MXU_MAX_BATCH`` is None; the reference's 2 048
+  was measured on a TPU);
 - the TPKE calls of the HoneyBadger epoch (split device encrypt,
   master-scalar threshold decrypt);
 - the randomized-linear-combination share checks (SURVEY §3.5): N
@@ -30,6 +35,7 @@ Counterpart of ``hbbft_tpu/crypto/batch.py``:
 from __future__ import annotations
 
 import hashlib
+import os
 import random
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -37,6 +43,7 @@ import torch
 
 from hbbft_tpu_torch import resolve_device
 from hbbft_tpu_torch.crypto import bls12_381 as c
+from hbbft_tpu_torch.ops import fp381, fp381_mxu
 from hbbft_tpu_torch.ops import gcurve as G
 
 _RAND_BITS = 128
@@ -70,6 +77,35 @@ DEVICE_ENCRYPT_MIN_BATCH = 1
 # Items per pipeline chunk of the split device encrypt.
 DEVICE_ENCRYPT_CHUNK = 1024
 
+# Ladders of at most this many rows run over the 8-bit field
+# (``ops/fp381_mxu.py``) unless ``HBBFT_FIELD_BACKEND`` forces one; None:
+# none do.  The reference's 2 048 is a crossover measured on a TPU, where its
+# 8-bit field's matmuls won the launch-bound small ladders.  On NVIDIA H100
+# 80GB HBM3, 700.00 W the 13-bit kernel (``csrc/ladder_window.cu``) was the
+# faster at every row count chip_smoke.py's ``kernel_ladder_mxu`` phase
+# measured, 132 bits, one launch each: G1 16 rows 1.00 ms against the 8-bit
+# kernel's 3.24, G1 256 1.08 / 3.11, G2 128 1.55 / 8.79, G2 256 1.64 / 8.85
+# (PERF.md §7).  So the default stays the 13-bit field everywhere.
+MXU_MAX_BATCH = None
+
+
+def _field_rep(size: int):
+    """The field of a ladder of ``size`` rows: (host converter module, Fp
+    ops, Fp2 ops).  ``HBBFT_FIELD_BACKEND=lazy|mxu`` forces one, any other
+    value raises; unset or empty, ``MXU_MAX_BATCH`` decides.  Both fields
+    are exact; the choice is speed only."""
+    forced = os.environ.get("HBBFT_FIELD_BACKEND")
+    if forced not in (None, "", "mxu", "lazy"):
+        raise ValueError(
+            f"HBBFT_FIELD_BACKEND={forced!r}: expected 'mxu' or 'lazy'"
+        )
+    use_mxu = forced == "mxu" or (
+        not forced and MXU_MAX_BATCH is not None and size <= MXU_MAX_BATCH
+    )
+    if use_mxu:
+        return fp381_mxu, G.MXU_FP_OPS, G.MXU_FP2_OPS
+    return fp381, G.LAZY_FP_OPS, G.LAZY_FP2_OPS
+
 
 class _MsmCache:
     """Batched lazy-field ladders on one device: the randomized MSM and the
@@ -100,9 +136,11 @@ class _MsmCache:
         version on the CPU).  On NVIDIA H100 80GB HBM3, 700.00 W it took
         0.58–0.68 of the bitwise kernel's time at every row count from 256
         to 65 536, G1 and G2 (chip_smoke.py's ladder_crossover, PERF.md).
-        Returns the device result (coordinates, inf, sharded): this rank's
-        rows alone when ``sharded``."""
+        The field is ``_field_rep``'s for the whole ladder's rows.  Returns
+        the device result (coordinates, inf, sharded, the field's host
+        converter module): this rank's rows alone when ``sharded``."""
         dev = self.device
+        rep, fp_ops, fp2_ops = _field_rep(len(points))
         sharded = self.mesh is not None and len(points) % self.mesh.size() == 0
         if sharded:
             from hbbft_tpu_torch.parallel.mesh import flat_rank
@@ -111,12 +149,12 @@ class _MsmCache:
             lo = flat_rank(self.mesh) * per
             points, scalars = points[lo: lo + per], scalars[lo: lo + per]
         if group == "g1":
-            pt, ops = G.g1_to_device(points, dev), G.LAZY_FP_OPS
+            pt, ops = G.g1_to_device(points, dev, rep=rep), fp_ops
         else:
-            pt, ops = G.g2_to_device(points, dev), G.LAZY_FP2_OPS
+            pt, ops = G.g2_to_device(points, dev, rep=rep), fp2_ops
         bits = torch.from_numpy(G.scalars_to_bits(scalars, nbits=_WINDOW_BITS)).to(dev)
         base_inf = torch.tensor([p is None for p in points], device=dev)
-        return (*G.scalar_mul_lazy_window(ops, pt, bits, base_inf), sharded)
+        return (*G.scalar_mul_lazy_window(ops, pt, bits, base_inf), sharded, rep)
 
     def _gather_rows(self, group: str, out, inf):
         """Every rank's ladder rows, in row order (the ranks hold contiguous
@@ -138,11 +176,11 @@ class _MsmCache:
             return tuple(cols), inf
         return tuple(torch.cat([cols[2 * i], cols[2 * i + 1]], dim=-1) for i in range(3)), inf
 
-    def _fetch(self, group: str, out, inf, sharded: bool):
+    def _fetch(self, group: str, out, inf, sharded: bool, rep):
         """ONE device→host copy of a ladder's coordinates and inf flags →
-        (host Jacobian points, canonicalized; inf flags), after the rows of
-        a sharded ladder are gathered.  The flag is authoritative: a lazy ∞
-        row's coordinates are garbage."""
+        (host Jacobian points, canonicalized by ``rep``'s converters; inf
+        flags), after the rows of a sharded ladder are gathered.  The flag
+        is authoritative: a lazy ∞ row's coordinates are garbage."""
         if sharded:
             out, inf = self._gather_rows(group, out, inf)
         packed = torch.cat([co.reshape(-1) for co in out] + [inf.to(torch.int32)])
@@ -150,7 +188,7 @@ class _MsmCache:
         n = out[0].numel()
         coords = tuple(packed[k * n:(k + 1) * n].reshape(out[0].shape) for k in range(3))
         from_dev = G.g1_from_device_batch if group == "g1" else G.g2_from_device_batch
-        return from_dev(coords), packed[3 * n:].astype(bool)
+        return from_dev(coords, rep=rep), packed[3 * n:].astype(bool)
 
     def _msm_dispatch(self, group: str, points, scalars):
         """Start the ladder of Σ scalars[i]·points[i] (scalars < 2^128, the

@@ -20,6 +20,13 @@ tensor [re | im] (G2, see ``ops/fp381.py``).
   :func:`scalar_mul_lazy_plain` and :func:`scalar_mul_lazy_window_plain`.
   Every ladder of :mod:`hbbft_tpu_torch.crypto.batch` runs the windowed
   one, the faster at every row count measured (PERF.md).
+- Over the reference's second lazy field, 8-bit digits
+  (``MXU_FP_OPS``/``MXU_FP2_OPS``, :mod:`hbbft_tpu_torch.ops.fp381_mxu`;
+  the host converters with ``rep=fp381_mxu``): the same ladders' plain
+  versions, and on the card the windowed ladder as one launch of
+  ``csrc/ladder_mxu.cu`` (:mod:`hbbft_tpu_torch.ops.ladder_mxu`).  Each
+  ops table carries its ``field`` (``"canonical"``, ``"lazy"``, ``"mxu"``),
+  and a kernel is chosen by it.
 """
 
 from __future__ import annotations
@@ -31,12 +38,14 @@ import torch
 
 from hbbft_tpu_torch.crypto.bls12_381 import R
 from hbbft_tpu_torch.ops import fp381 as F
-from hbbft_tpu_torch.ops import ladder_lazy
+from hbbft_tpu_torch.ops import fp381_mxu as M
+from hbbft_tpu_torch.ops import ladder_lazy, ladder_mxu
 
 
 class _FpOps:
     """The canonical field over Fp (exact [0, p) digits)."""
 
+    field = "canonical"
     fp2 = False
     add = staticmethod(F.fp_add)
     sub = staticmethod(F.fp_sub)
@@ -48,6 +57,7 @@ class _FpOps:
 
 
 class _Fp2Ops:
+    field = "canonical"
     fp2 = True
     add = staticmethod(F.fp2_add)
     sub = staticmethod(F.fp2_sub)
@@ -62,6 +72,7 @@ class _LazyFpOps:
     """The lazy field over Fp, in plain PyTorch (see ops/fp381.py for its
     soundness conditions — ladders must use scalars < 2^128)."""
 
+    field = "lazy"
     fp2 = False
     add = staticmethod(F.fp_add_lazy)
     sub = staticmethod(F.fp_sub_lazy)
@@ -73,6 +84,7 @@ class _LazyFpOps:
 
 
 class _LazyFp2Ops:
+    field = "lazy"
     fp2 = True
     add = staticmethod(F.fp2_add_lazy)
     sub = staticmethod(F.fp2_sub_lazy)
@@ -83,10 +95,40 @@ class _LazyFp2Ops:
     select = staticmethod(F.fp2_select)
 
 
+class _MxuFpOps:
+    """The 8-bit-digit lazy field over Fp (ops/fp381_mxu.py): the lazy
+    field's soundness conditions; pair it with ``rep=fp381_mxu`` in the
+    host converters."""
+
+    field = "mxu"
+    fp2 = False
+    add = staticmethod(M.fp_add)
+    sub = staticmethod(M.fp_sub)
+    mul = staticmethod(M.fp_mul)
+    sqr = staticmethod(M.fp_sqr)
+    neg = staticmethod(M.fp_neg)
+    is_zero = staticmethod(M.fp_is_zero_digits)
+    select = staticmethod(M.fp_select)
+
+
+class _MxuFp2Ops:
+    field = "mxu"
+    fp2 = True
+    add = staticmethod(M.fp2_add)
+    sub = staticmethod(M.fp2_sub)
+    mul = staticmethod(M.fp2_mul)
+    sqr = staticmethod(M.fp2_sqr)
+    neg = staticmethod(M.fp2_neg)
+    is_zero = staticmethod(M.fp2_is_zero_digits)
+    select = staticmethod(M.fp2_select)
+
+
 FP_OPS = _FpOps()
 FP2_OPS = _Fp2Ops()
 LAZY_FP_OPS = _LazyFpOps()
 LAZY_FP2_OPS = _LazyFp2Ops()
+MXU_FP_OPS = _MxuFpOps()
+MXU_FP2_OPS = _MxuFp2Ops()
 
 
 def _dbl_small(o, a, times: int):
@@ -230,12 +272,16 @@ def scalar_mul_lazy(o, pt, bits: torch.Tensor, base_inf: torch.Tensor):
     P == ±Q collision needs a bit-prefix m ≥ (r−1)/2 ≥ 2^253).
     Returns ((X, Y, Z), inf).
 
-    On CUDA tensors: ONE launch of the whole-ladder kernel, G1 or G2 as
-    ``o.fp2`` says (it raises rather than fall back).  On CPU tensors:
-    :func:`scalar_mul_lazy_plain` over ``o``.
+    On CUDA tensors over the lazy field: ONE launch of the whole-ladder
+    kernel, G1 or G2 as ``o.fp2`` says; over any other field it raises (no
+    kernel runs this ladder there), as it does rather than fall back.  On
+    CPU tensors: :func:`scalar_mul_lazy_plain` over ``o``.
     """
     if not pt[0].is_cuda:
         return scalar_mul_lazy_plain(o, pt, bits, base_inf)
+    if o.field != "lazy":
+        raise ValueError(f"scalar_mul_lazy has no kernel over the {o.field!r} field; on the "
+                         "card it runs over LAZY_FP_OPS / LAZY_FP2_OPS")
     return ladder_lazy.ladder_lazy(pt, bits, base_inf, fp2=o.fp2)
 
 
@@ -273,12 +319,18 @@ def scalar_mul_lazy_window(o, pt, bits: torch.Tensor, base_inf: torch.Tensor):
     lazy-field and scalar regime, 139 doubles and 40 additions for 132 bits
     against 132 and 132.  ``bits.shape[-1]`` must be a multiple of 4.
 
-    On CUDA tensors: ONE launch of the windowed kernel
-    (``csrc/ladder_window.cu``; it raises rather than fall back).  On CPU
-    tensors: :func:`scalar_mul_lazy_window_plain` over ``o``."""
+    On CUDA tensors: ONE launch of the windowed kernel of ``o``'s field,
+    ``csrc/ladder_window.cu`` (lazy) or ``csrc/ladder_mxu.cu`` (mxu); it
+    raises on any other ops table, as it does rather than fall back.  On
+    CPU tensors: :func:`scalar_mul_lazy_window_plain` over ``o``."""
     if not pt[0].is_cuda:
         return scalar_mul_lazy_window_plain(o, pt, bits, base_inf)
-    return ladder_lazy.ladder_window(pt, bits, base_inf, fp2=o.fp2)
+    if o.field == "lazy":
+        return ladder_lazy.ladder_window(pt, bits, base_inf, fp2=o.fp2)
+    if o.field == "mxu":
+        return ladder_mxu.ladder_mxu(pt, bits, base_inf, fp2=o.fp2)
+    raise ValueError(f"scalar_mul_lazy_window has no kernel over the {o.field!r} field; "
+                     "on the card it runs over the lazy or the mxu ops tables")
 
 
 def window_table(o, pt):
@@ -349,18 +401,20 @@ def _cols(rows: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(rows.T)).to(device)
 
 
-def g1_to_device(points: Sequence[Optional[tuple]], device) -> Tuple:
-    """Host Jacobian G1 points (or None) → (X, Y, Z) column tensors."""
+def g1_to_device(points: Sequence[Optional[tuple]], device, rep=F) -> Tuple:
+    """Host Jacobian G1 points (or None) → (X, Y, Z) column tensors.
+    ``rep``: the field module of the digits, :mod:`fp381` (13-bit, the
+    default) or :mod:`fp381_mxu` (8-bit)."""
     coords = ([], [], [])
     for p in points:
         for ci in range(3):
             coords[ci].append(0 if p is None else p[ci] % F.P)
-    return tuple(_cols(F.ints_to_limbs_batch(cs), device) for cs in coords)
+    return tuple(_cols(rep.ints_to_limbs_batch(cs), device) for cs in coords)
 
 
-def g2_to_device(points: Sequence[Optional[tuple]], device) -> Tuple:
+def g2_to_device(points: Sequence[Optional[tuple]], device, rep=F) -> Tuple:
     """Host Jacobian G2 points (Fp2 coords) → (X, Y, Z), each an (NL, 2B)
-    [re | im] tensor."""
+    [re | im] tensor; ``rep`` as in :func:`g1_to_device`."""
     coords = ([], []), ([], []), ([], [])
     for p in points:
         if p is None:
@@ -369,31 +423,32 @@ def g2_to_device(points: Sequence[Optional[tuple]], device) -> Tuple:
             coords[ci][0].append(c[0] % F.P)
             coords[ci][1].append(c[1] % F.P)
     return tuple(
-        _cols(F.ints_to_limbs_batch(re + im), device) for (re, im) in coords
+        _cols(rep.ints_to_limbs_batch(re + im), device) for (re, im) in coords
     )
 
 
-def _host_ints(col) -> list:
+def _host_ints(col, rep=F) -> list:
     """(NL, B) column tensor or array → B python ints (not reduced)."""
     if isinstance(col, torch.Tensor):
         col = col.cpu().numpy()
-    return F.limbs_to_ints_batch(np.asarray(col).T)
+    return rep.limbs_to_ints_batch(np.asarray(col).T)
 
 
-def g1_from_device_batch(pt) -> list:
+def g1_from_device_batch(pt, rep=F) -> list:
     """(X, Y, Z) column tensors → host Jacobian points (None = infinity);
-    canonicalizes on the host."""
-    xs, ys, zs = (_host_ints(c) for c in pt)
+    canonicalizes on the host.  ``rep`` as in :func:`g1_to_device`."""
+    xs, ys, zs = (_host_ints(c, rep) for c in pt)
     return [
         None if (z % F.P) == 0 else (x % F.P, y % F.P, z % F.P)
         for x, y, z in zip(xs, ys, zs)
     ]
 
 
-def g2_from_device_batch(pt) -> list:
-    """(X, Y, Z) [re | im] tensors → host Jacobian G2 points."""
+def g2_from_device_batch(pt, rep=F) -> list:
+    """(X, Y, Z) [re | im] tensors → host Jacobian G2 points; ``rep`` as
+    in :func:`g1_to_device`."""
     def halves(c):
-        ints = _host_ints(c)
+        ints = _host_ints(c, rep)
         return ints[: len(ints) // 2], ints[len(ints) // 2:]
 
     (xr, xi), (yr, yi), (zr, zi) = (halves(c) for c in pt)
