@@ -75,14 +75,20 @@ Phases, one JSON line each; any failure exits non-zero:
    K beside the K it picks (every K's result equal): why every dispatch
    runs the windowed kernel, and at which K.
 10. ``kernel_ladder_mxu``: the windowed ladder over the reference's 8-bit
-   field (``csrc/ladder_mxu.cu``: one warp a row, each product's digit
-   convolution and fold as ``mma.sync`` f16 products on the tensor cores)
-   against its plain version, digit- and inf-exact, at G1 16 / 256 and G2
-   128 / 256 rows (a share-set fold, the N = 64 encrypt, coin256), with the
-   edge rows, three rows each against the native oracle, and at ragged rows
-   and short scalars (G1 37 rows of 8 bits, G2 5 of 20); each timed by CUDA
-   events and the profiler against its bound, beside ``ladder_window`` at
-   the same rows.  Then, under ``HBBFT_FIELD_BACKEND=mxu`` (restored after),
+   field (``csrc/ladder_mxu.cu``: the windowed kernel's design, several
+   warps a row on the shared step tables and K rows a block, each product's
+   digit convolution and the K rows' shared fold as ``mma.sync`` f16
+   products on the tensor cores) against its plain version, digit- and
+   inf-exact, at G1 16 / 256 and G2 128 / 256 rows (a share-set fold, the
+   N = 64 encrypt, coin256), with the edge rows, three rows each against
+   the native oracle, and at ragged rows and short scalars (G1 37 rows of 8
+   bits, G2 5 of 20); each timed by CUDA events and the profiler against
+   its bound, beside ``ladder_window`` at the same rows, with the K it runs
+   at, its warps, registers, spilled bytes, shared memory and blocks an SM.
+   A sweep against ``ladder_window`` at G1 and G2, 16 … 8 192 rows, every
+   row held exact against the plain version and the kernel timed at each K
+   (every K's result equal): where the 8-bit field crosses the 13-bit one,
+   and the K thresholds.  Then, under ``HBBFT_FIELD_BACKEND=mxu`` (restored after),
    one N = 64 epoch (ciphertexts equal to the native oracle's, every
    contribution back) and one coin256 verify (True; False with a forged
    share), every ladder a ``ladder_mxu`` launch and none a ``ladder_window``
@@ -2296,6 +2302,8 @@ def phase_ladder_crossover(ctx):
 # squeeze; a select 49.
 MXU_CASES = {"g1": (16, 4 * N_NODES), "g2": (2 * N_NODES, COIN_N)}
 MXU_RAGGED = (("g1", 37, 8), ("g2", 5, 20))  # (group, rows, bits), held exact, not timed
+MXU_SWEEP_ROWS = (16, 64, 256, 1024, 2048, 8192)  # against ladder_window, each K timed
+MXU_SWEEP_POINTS = 64  # distinct points of the sweep's rows (every row its own scalar)
 F16_DENSE_FLOPS = 989e12  # H100 SXM data sheet, dense
 MXU_NL = 49
 MXU_MUL_MACS = MXU_NL * MXU_NL + 51 * MXU_NL
@@ -2372,18 +2380,53 @@ def _field_backend(value: str):
             os.environ["HBBFT_FIELD_BACKEND"] = before
 
 
+def _mxu_plain_check(torch, group: str, ops, inputs, operands):
+    """One plain ladder (``ops``: the 8-bit field) over the rows of every
+    ``(points, scalars)`` of ``inputs``; returns ``check(got, inf, i,
+    rows, what)``, which holds a kernel's result for input ``i`` against
+    its slice of that call and returns the largest digit difference (0),
+    the plain call's ms and its rows."""
+    import numpy as np
+
+    from hbbft_tpu_torch.ops import fp381_mxu as M
+    from hbbft_tpu_torch.ops import gcurve as G
+
+    all_pts = [p for pts, _ in inputs for p in pts]
+    pt, bits, base_inf = operands(all_pts, [s for _, sc in inputs for s in sc], M)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_inf = G.scalar_mul_lazy_window_plain(ops, pt, bits, base_inf)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    offsets = np.cumsum([0] + [len(p) for p, _ in inputs])
+
+    def check(got, inf, i, rows, what):
+        off = int(offsets[i])
+        want = [_window_slice(group, r, off, rows, len(all_pts)) for r in ref]
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        if err or not torch.equal(inf, ref_inf[off: off + rows]):
+            raise AssertionError(f"{group} ladder_mxu differs from its plain version "
+                                 f"at R={rows} ({what})")
+        return err
+
+    return check, plain_ms, len(all_pts)
+
+
 def phase_kernel_ladder_mxu(ctx):
     """The 8-bit field's windowed kernel (``csrc/ladder_mxu.cu``) against
     its plain version on the card, digit- and inf-exact, at each case of
-    ``MXU_CASES`` (one plain call a group over all its cases' rows), with
+    ``MXU_CASES`` (one plain call a group over all its cases), with
     ``_window_rows``' edge rows and three rows against the native oracle,
-    and at the ragged ``MXU_RAGGED`` cases; each case of ``MXU_CASES`` timed
-    by CUDA events and the profiler against its bound, and
-    ``ladder_window`` at the same rows (the crossover).  Then, under
-    ``HBBFT_FIELD_BACKEND=mxu``, one N = 64 epoch (its ciphertexts equal
-    to the native oracle's, every contribution back, every instance
-    accepted) and one coin256 verify (True; False with a forged share),
-    each with its ladders all ``ladder_mxu`` launches."""
+    and at the ragged ``MXU_RAGGED`` cases; each case timed by CUDA events
+    and the profiler against its bound, and ``ladder_window`` at the same
+    rows.  Then, under ``HBBFT_FIELD_BACKEND=mxu``, one N = 64 epoch (its
+    ciphertexts equal to the native oracle's, every contribution back,
+    every instance accepted) and one coin256 verify (True; False with a
+    forged share), each with its ladders all ``ladder_mxu`` launches.  Last
+    the sweep: each row count of ``MXU_SWEEP_ROWS`` (one plain call a group
+    over all of them) held exact, timed at every K (every K's result
+    equal) and beside ``ladder_window`` (the crossover)."""
     import numpy as np
     import torch
 
@@ -2400,7 +2443,7 @@ def phase_kernel_ladder_mxu(ctx):
     dev = torch.device("cuda")
     nat = get_oracle()
     rng = random.Random(17)
-    out_groups, max_err = {}, 0
+    out_groups, sweep, max_err = {}, {}, 0
     for group, cases in MXU_CASES.items():
         fp2 = group == "g2"
         ops, lazy_ops = ((G.MXU_FP2_OPS, G.LAZY_FP2_OPS) if fp2
@@ -2416,28 +2459,16 @@ def phase_kernel_ladder_mxu(ctx):
                     torch.from_numpy(F.bits_batch(scalars, LADDER_BITS)).to(dev),
                     torch.tensor([p is None for p in pts], device=dev))
 
-        all_pts = [p for pts, _ in inputs for p in pts]
-        pt, bits, base_inf = operands(all_pts, [s for _, sc in inputs for s in sc], M)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref, ref_inf = G.scalar_mul_lazy_window_plain(ops, pt, bits, base_inf)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        shapes, off = {}, 0
-        for rows, (pts, scalars) in zip(cases, inputs):
+        check, plain_ms, plain_rows = _mxu_plain_check(torch, group, ops, inputs, operands)
+        shapes = {}
+        for i, (rows, (pts, scalars)) in enumerate(zip(cases, inputs)):
             pt, bits, base_inf = operands(pts, scalars, M)
 
             def run():
                 return G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
 
             got, inf = run()
-            want = [_window_slice(group, r, off, rows, len(all_pts)) for r in ref]
-            torch.cuda.synchronize()
-            err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-            max_err = max(max_err, err)
-            if err or not torch.equal(inf, ref_inf[off: off + rows]):
-                raise AssertionError(f"{group} ladder_mxu differs from its plain version "
-                                     f"at R={rows}")
+            max_err = max(max_err, check(got, inf, i, rows, "a case"))
             inf_h = inf.cpu().tolist()
             if inf_h != [s == 0 or p is None for p, s in zip(pts, scalars)]:
                 raise AssertionError(f"{group} ladder_mxu: wrong infinity rows at R={rows}")
@@ -2459,17 +2490,18 @@ def phase_kernel_ladder_mxu(ctx):
             n_bytes = 2 * 3 * MXU_NL * got[0].shape[1] * 4 + rows * LADDER_BITS * 4 + 2 * rows
             macs, n_ops = mxu_ladder_work(group, rows, LADDER_BITS)
             bms, by = mxu_bound_ms(ctx, n_bytes, macs, n_ops)
+            k = ladder_mxu.mxu_k(rows, fp2)
             shapes[rows] = {
                 "rows": rows, "bits": LADDER_BITS, "inf_rows": sum(inf_h),
                 "ms": ev_ms, "event_ms_per_launch": ev_ms, "device_ms_per_launch": dev_ms,
                 "profiler": recorded, "bound_ms": bms, "bound_by": by,
                 "share_of_bound": bms / ev_ms, "bytes": n_bytes, "tensor_macs": macs,
                 "int32_ops": n_ops, "ladder_window_ms": window_ms,
-                "mxu_over_window": ev_ms / window_ms,
+                "mxu_over_window": ev_ms / window_ms, "k": k, **ladder_mxu.info(fp2, k),
                 "ladder_window_k": ladder_lazy.window_k(rows, fp2)}
-            off += rows
-        out_groups[group] = {"plain_ms": plain_ms, "plain_rows": len(all_pts),
-                             "info": ladder_mxu.info(fp2), "shapes": shapes}
+        out_groups[group] = {"plain_ms": plain_ms, "plain_rows": plain_rows,
+                             "info": {k: ladder_mxu.info(fp2, k) for k in ladder_mxu.KS},
+                             "shapes": shapes}
     for group, rows, nbits in MXU_RAGGED:
         ops = G.MXU_FP2_OPS if group == "g2" else G.MXU_FP_OPS
         pts, _ = _ladder_rows(group, rows, rng)
@@ -2536,12 +2568,61 @@ def phase_kernel_ladder_mxu(ctx):
         if coin_ok is not True or B.batch_verify_sig_shares(forged, msg, crng) is not False:
             raise AssertionError("mxu: coin256's verify is wrong")
         check_launches(coin_launches, ladder_launches(2, "ladder_mxu"), "mxu coin256")
-    ctx["mxu"] = {"max_abs_err": max_err, **out_groups}
+    # the sweep, last (its batches run after the route's epoch, as the
+    # parent's phase runs that epoch): the kernel at every K (the same
+    # result) and at the K it picks, beside ladder_window at its own; one
+    # plain call a group over all its rows
+    for group in MXU_CASES:
+        fp2 = group == "g2"
+        ops, lazy_ops = ((G.MXU_FP2_OPS, G.LAZY_FP2_OPS) if fp2
+                         else (G.MXU_FP_OPS, G.LAZY_FP_OPS))
+        to_dev = G.g2_to_device if fp2 else G.g1_to_device
+        pool = [p for p in _ladder_rows(group, MXU_SWEEP_POINTS, rng)[0] if p is not None]
+        sweep_inputs = [([pool[i % len(pool)] for i in range(rows)],
+                         [rng.getrandbits(128) for _ in range(rows)]) for rows in MXU_SWEEP_ROWS]
+
+        def operands(pts, scalars, rep):
+            return (to_dev(pts, dev, rep=rep),
+                    torch.from_numpy(F.bits_batch(scalars, LADDER_BITS)).to(dev),
+                    torch.tensor([p is None for p in pts], device=dev))
+
+        check, plain_ms, plain_rows = _mxu_plain_check(torch, group, ops, sweep_inputs, operands)
+        rows_out = []
+        for i, (rows, (pts, scalars)) in enumerate(zip(MXU_SWEEP_ROWS, sweep_inputs)):
+            pt, bits, base_inf = operands(pts, scalars, M)
+            got, inf = G.scalar_mul_lazy_window(ops, pt, bits, base_inf)
+            max_err = max(max_err, check(got, inf, i, rows, "the sweep"))
+            row = {"rows": rows, "k": ladder_mxu.mxu_k(rows, fp2)}
+            for k in ladder_mxu.KS:
+                def run_k():
+                    return ladder_mxu.ladder_mxu_k(pt, bits, base_inf, fp2, k)
+
+                got_k, inf_k = run_k()
+                if not (all(torch.equal(x, y) for x, y in zip(got_k, got))
+                        and torch.equal(inf_k, inf)):
+                    raise AssertionError(f"{group} ladder_mxu at K = {k} differs from K = "
+                                         f"{row['k']} at {rows} rows")
+                row[f"mxu_k{k}_ms"] = event_ms_per_launch(torch, run_k, calls=3)
+            row["mxu_ms"] = row[f"mxu_k{row['k']}_ms"]
+            pt13 = to_dev(pts, dev)
+            row["window_k"] = ladder_lazy.window_k(rows, fp2)
+            row["window_ms"] = event_ms_per_launch(
+                torch, lambda: G.scalar_mul_lazy_window(lazy_ops, pt13, bits, base_inf), calls=3)
+            row["mxu_over_window"] = row["mxu_ms"] / row["window_ms"]
+            rows_out.append(row)
+        sweep[group] = {"rows": rows_out, "plain_ms": plain_ms, "plain_rows": plain_rows,
+                        "mxu_faster_at_rows": [r["rows"] for r in rows_out
+                                               if r["mxu_over_window"] < 1],
+                        "best_k_by_rows": {r["rows"]: min(ladder_mxu.KS,
+                                                          key=lambda k: r[f"mxu_k{k}_ms"])
+                                           for r in rows_out}}
+    ctx["mxu"] = {"max_abs_err": max_err, **out_groups, "sweep": sweep}
     ctx["mxu_launches"] = {"epoch": epoch_launches_mxu["ladder_mxu"],
                            "coin256": coin_launches["ladder_mxu"]}
     return {"max_abs_err": max_err, "tolerance": 0, "digit_exact": True, "inf_exact": True,
             "by_group": {g: {**v, "shapes": {str(r): x for r, x in v["shapes"].items()}}
                          for g, v in out_groups.items()},
+            "sweep": sweep,
             "epoch64": {"field_backend": "mxu", "ciphertexts_match_native": True,
                         "batch_ok": True, "epoch_s": epoch_s, "phase_s": detail["phase_s"],
                         "launches": epoch_launches_mxu},

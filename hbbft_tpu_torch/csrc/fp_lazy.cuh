@@ -380,4 +380,40 @@ __device__ __forceinline__ void fp_mul_unsqueezed(const int32_t* a, const int32_
   }
 }
 
+// The field as ladder_steps.cuh's field policy, K elements a warp: a row
+// of kRowWords words an element, kDigits digits a lane at word own() of
+// its group's row, kScratchWords words of scratch a warp, kConstWords
+// words of the block's constants in shared memory (the residue rows, K > 1).
+template <int K>
+struct LazyField {
+  static constexpr int kK = K;
+  static constexpr int kNL = NL;
+  static constexpr int kRowWords = hb::kRowWords;
+  static constexpr int kDigits = K;
+  static constexpr int kScratchWords = K * scratch_words<K>();
+  static constexpr int kConstWords = K > 1 ? kFoldRows * hb::kRowWords : 0;
+  using Lane = FieldLane<K>;
+  struct Consts {
+    const int32_t* fold;
+    const int32_t* subc;
+  };
+
+  __device__ static int group() { return Lanes<K>::group(); }
+  __device__ static int own() { return Lanes<K>::at(Lanes<K>::chunk(), Lanes<K>::group()); }
+  __device__ static int first_digit() { return K * Lanes<K>::chunk(); }
+  // by every thread of the block, before its barrier
+  __device__ static void stage(int32_t* const_s, int32_t* wscratch, const Consts& c) {
+    zero_scratch<K>(wscratch + group() * scratch_words<K>());
+    if constexpr (K > 1) stage_fold(const_s, c.fold);
+  }
+  __device__ static void load(Lane& f, const Consts& c, const int32_t* const_s) {
+    load_field<K>(f, c.fold, c.subc, const_s);
+  }
+  __device__ static void mul(const int32_t* a, const int32_t* b, int32_t* wscratch, const Lane& f,
+                             int32_t (&out)[K]) {
+    fp_mul_unsqueezed<K>(a, b, wscratch + group() * scratch_words<K>(), f, out);
+  }
+  __device__ static void squeeze(int32_t (&v)[K], const Lane& f) { hb::squeeze<K>(v, f); }
+};
+
 }  // namespace hb

@@ -51,6 +51,7 @@ namespace {
 using namespace hb_ladder;
 
 constexpr int K = 1;  // one row a block
+using Fd = hb::LazyField<K>;
 
 template <class S, bool kFp2>
 __global__ void __launch_bounds__(S::kWarps * 32)
@@ -70,8 +71,8 @@ ladder_lazy_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ p
   const int r = blockIdx.x;  // one row per block
   for (int i = threadIdx.x; i < S::kFlags; i += blockDim.x) flag[i] = 0;
   hb::zero_scratch<K>(scratch[warp]);
-  load_point<S, K, kFp2>(base, warp, px, py, pz, R, r);
-  zero_rows<S, K>(rows, S::kAcc, warp);  // A: acc = ∞
+  load_point<Fd, S, kFp2>(base, warp, px, py, pz, R, r);
+  zero_rows<Fd, S>(rows, S::kAcc, warp);  // A: acc = ∞
   __syncthreads();
   hb::FieldLane<K> f;
   hb::load_field<K>(f, fold, subc, nullptr);
@@ -89,7 +90,7 @@ ladder_lazy_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ p
                                  : ((ph & 1) ? hb_sched::kStepAB : hb_sched::kStepBA);
     const int b0 = list_bound<kFp2>(table_id, warp, 0);
     const int b1 = (ph > 0 || warp == 0) ? list_bound<kFp2>(table_id, warp, 1) : b0;
-    run_list<S, K, kFp2>(b0, b1, {rows, base, base + S::kAcc * hb::kRowWords}, scratch[warp],
+    run_list<Fd, S, kFp2>(b0, b1, {rows, base, base + S::kAcc * hb::kRowWords}, scratch[warp],
                          flag, f, bit, inf, binf, ph + 1);
     // acc = ∞: acc + base = base; base = ∞: stays acc
     if (ph > 0) inf = bit ? (inf && binf) : inf;
@@ -97,7 +98,7 @@ ladder_lazy_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__ p
   }
 
   // nbits steps: the last wrote B if nbits is odd, else A
-  store_point<S, K, kFp2>(rows + (nbits & 1) * S::kAcc * hb::kRowWords, warp, ox, oy, oz, R, r);
+  store_point<Fd, S, kFp2>(rows + (nbits & 1) * S::kAcc * hb::kRowWords, warp, ox, oy, oz, R, r);
   if (threadIdx.x == 0) out_inf[r] = inf ? 1 : 0;
 }
 

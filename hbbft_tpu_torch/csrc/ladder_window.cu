@@ -19,7 +19,8 @@
 // keeps the field's code in the binary once.
 //
 // Design.  A block of 3 (G1) or 8 (G2) warps runs K rows, each warp every
-// operation for the K rows at once (ladder_steps.cuh, the field of
+// operation for the K rows at once (ladder_steps.cuh's window_body,
+// which ladder_mxu.cu runs over the 8-bit field; here the field of
 // fp_lazy.cuh); K = 4 from 512 rows, else 2 (G2 from 256 rows) or 1
 // (pick_k, as the card measured it).  The tables of the static schedule:
 // dbl (a doubling of the accumulator), dblpro (dbl and, beside it, the
@@ -58,24 +59,8 @@ namespace {
 
 using namespace hb_ladder;
 
-constexpr int kWindow = 4;
-constexpr int kEntries = (1 << kWindow) - 1;  // P … 15P
-constexpr int kSmemPerSm = 233472;            // 228 KB, of which 1 KB a block is the system's
-constexpr int kSmemPerBlockReserved = 1024;
-
-// words of each region, in this order
-template <class S, int K>
-struct Smem {
-  static constexpr int kSlotRow = K * hb::kRowWords;
-  static constexpr int kRows = S::kSlots * kSlotRow;  // A, B, the temporaries
-  static constexpr int kTable = kEntries * S::kAcc * kSlotRow;  // coordinates only
-  static constexpr int kPro = (S::kEntry - S::kAcc) * kSlotRow;  // the base block's prologue values
-  static constexpr int kScratch = S::kWarps * K * hb::scratch_words<K>();
-  static constexpr int kFold = K > 1 ? hb::kFoldRows * hb::kRowWords : 0;
-  static constexpr int kWords = kRows + kTable + kPro + kScratch + kFold + S::kFlags;
-  static constexpr size_t kBytes = sizeof(int32_t) * kWords;
-  static constexpr int kBlocksPerSm = kSmemPerSm / (kBytes + kSmemPerBlockReserved);
-};
+template <int K>
+using Fd = hb::LazyField<K>;
 
 // K for a batch of R rows (pick_k), as chip_smoke.py's ladder_crossover
 // measured it on the H100 (PERF.md §6): 4 from kRowsK4 rows (below, its
@@ -95,22 +80,12 @@ constexpr int kSms = 132;  // the H100 SXM's
 template <class S, bool kFp2, int K>
 constexpr int min_blocks() {
   if (K == 4) {
-    constexpr int by_smem = Smem<S, K>::kBlocksPerSm;
+    constexpr int by_smem = Smem<Fd<K>, S>::kBlocksPerSm;
     constexpr int by_warps = 24 / S::kWarps;
     return by_smem < by_warps ? by_smem : by_warps;
   }
   constexpr int rows = K == 2 ? kRowsK4 : rows_k2<kFp2>();
   return (rows / K + kSms - 1) / kSms;
-}
-
-// slot rows src[0 .. n) → dst[0 .. n), all K rows of each, a warp a row
-template <class S, int K>
-__device__ __forceinline__ void copy_rows(int32_t* dst, const int32_t* src, int n, int warp) {
-  for (int k = warp; k < n; k += S::kWarps) {
-    for (int i = hb::lane_id(); i < K * hb::kRowWords; i += 32) {
-      dst[k * K * hb::kRowWords + i] = src[k * K * hb::kRowWords + i];
-    }
-  }
 }
 
 template <class S, bool kFp2, int K>
@@ -122,93 +97,9 @@ ladder_window_kernel(const int32_t* __restrict__ px, const int32_t* __restrict__
                      int32_t* __restrict__ ox, int32_t* __restrict__ oy,
                      int32_t* __restrict__ oz, uint8_t* __restrict__ out_inf,
                      int R, int nbits) {
-  using M = Smem<S, K>;
   extern __shared__ __align__(16) int32_t smem[];
-  int32_t* rows = smem;  // A: slots 0 .. kAcc − 1, B: kAcc .. 2 kAcc − 1, the temporaries
-  int32_t* acc_b = rows + S::kAcc * M::kSlotRow;
-  int32_t* table = rows + M::kRows;
-  int32_t* pro = table + M::kTable;
-  int32_t* scratch = pro + M::kPro;
-  int32_t* fold_s = scratch + M::kScratch;
-  int* flag = reinterpret_cast<int*>(fold_s + M::kFold);
-
-  const int warp = threadIdx.x >> 5;
-  const int g = hb::Lanes<K>::group();
-  const int r = blockIdx.x * K + g;  // this lane's row
-  const bool valid = r < R;
-  int32_t* wscratch = scratch + (warp * K + g) * hb::scratch_words<K>();
-  for (int i = threadIdx.x; i < S::kFlags; i += blockDim.x) flag[i] = 0;
-  hb::zero_scratch<K>(wscratch);
-  if constexpr (K > 1) hb::stage_fold(fold_s, fold);
-  load_point<S, K, kFp2>(table, warp, px, py, pz, R, r);
-  __syncthreads();
-  hb::FieldLane<K> f;
-  hb::load_field<K>(f, fold, subc, fold_s);
-
-  // entry e's coordinates: the whole block's, and this lane's
-  auto entry_block = [&](int e) { return table + e * S::kAcc * M::kSlotRow; };
-  auto entry = [&](int e) { return rows_at<K>(table, e * S::kAcc); };
-  int32_t* const my_rows = rows_at<K>(rows, 0);
-  int32_t* const my_pro = rows_at<K>(pro, 0);
-  const bool binf = valid ? base_inf[r] != 0 : true;
-  const int32_t* rbits = bits + static_cast<size_t>(valid ? r : 0) * nbits;
-
-  // The phases, one step each, through one call of run_list: the prologue
-  // of P (warp 0); the table, entry k − 1 (k = 2 .. 15) from entry src by
-  // an addp step (k odd: (k − 1)·P + P) or a dbl step (2·(k/2)·P), src
-  // copied into A and the result (in B) into entry k − 1 at the next phase;
-  // then per window (MSB first) dbl A→B with the prologue of entry idx − 1
-  // beside it, dbl B→A, dbl A→B, and the bitwise ladder's step B→A with
-  // base T[idx] and bit idx ≠ 0: the fourth doubling, the addition of
-  // entry idx and the selects.
-  constexpr int kWindows0 = kEntries;
-  const int phases = kWindows0 + (nbits / kWindow) * kWindow;
-  bool inf = true;
-  int idx = 0;
-#pragma unroll 1
-  for (int ph = 0; ph < phases; ++ph) {
-    int table_id = hb_sched::kPrologue;
-    bool run = true, used = false;
-    int32_t* base = entry(0);
-    if (ph == 0) {
-      run = warp == 0;
-    } else if (ph < kWindows0) {
-      const int k = ph + 1;
-      const int src = (k & 1) ? k - 2 : k / 2 - 1;
-      if (k > 2) copy_rows<S, K>(entry_block(k - 2), acc_b, S::kAcc, warp);
-      // the entry the last phase made is still in B
-      copy_rows<S, K>(rows, k > 2 && src == k - 2 ? acc_b : entry_block(src), S::kAcc, warp);
-      __syncthreads();
-      table_id = (k & 1) ? hb_sched::kAddpAB : hb_sched::kDblAB;
-    } else {
-      const int w = (ph - kWindows0) / kWindow, d = (ph - kWindows0) % kWindow;
-      if (d == 0) {
-        if (w == 0) {
-          copy_rows<S, K>(entry_block(kEntries - 1), acc_b, S::kAcc, warp);
-          zero_rows<S, K>(rows, S::kAcc, warp);  // A: acc = ∞
-          __syncthreads();
-        }
-        const int i = nbits - kWindow * (w + 1);
-        idx = valid ? ((rbits[i] != 0) | (rbits[i + 1] != 0) << 1 | (rbits[i + 2] != 0) << 2 |
-                       (rbits[i + 3] != 0) << 3)
-                    : 0;
-      }
-      used = idx != 0;
-      table_id = d == 0 ? hb_sched::kDblproAB
-                        : (d == 1 ? hb_sched::kDblBA
-                                  : (d == 2 ? hb_sched::kDblAB : hb_sched::kStepBA));
-      base = entry(used ? idx - 1 : 0);
-    }
-    const int b0 = list_bound<kFp2>(table_id, warp, 0);
-    const int b1 = run ? list_bound<kFp2>(table_id, warp, 1) : b0;
-    run_list<S, K, kFp2>(b0, b1, {my_rows, base, my_pro}, wscratch, flag, f, used, inf, binf,
-                         ph + 1);
-    if (table_id == hb_sched::kStepBA) inf = used ? (inf && binf) : inf;
-    __syncthreads();
-  }
-
-  store_point<S, K, kFp2>(rows, warp, ox, oy, oz, R, r);
-  if (warp == 0 && hb::Lanes<K>::chunk() == 0 && valid) out_inf[r] = inf ? 1 : 0;
+  window_body<Fd<K>, S, kFp2>(smem, px, py, pz, bits, base_inf, {fold, subc}, ox, oy, oz,
+                              out_inf, R, nbits);
 }
 
 template <class S, bool kFp2, int K>
@@ -216,7 +107,7 @@ int launch(const void* px, const void* py, const void* pz, const void* bits,
            const void* base_inf, const void* fold, const void* subc, void* ox, void* oy,
            void* oz, void* out_inf, int R, int nbits, cudaStream_t stream) {
   const auto kernel = &ladder_window_kernel<S, kFp2, K>;
-  constexpr size_t bytes = Smem<S, K>::kBytes;
+  constexpr size_t bytes = Smem<Fd<K>, S>::kBytes;
   const cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc != cudaSuccess) return (int)rc;
@@ -340,7 +231,7 @@ int pick_k(int R, int fp2) {
 template <class S, bool kFp2, int K>
 int info(int* out) {
   const auto kernel = &ladder_window_kernel<S, kFp2, K>;
-  constexpr size_t bytes = Smem<S, K>::kBytes;
+  constexpr size_t bytes = Smem<Fd<K>, S>::kBytes;
   cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (rc != cudaSuccess) return (int)rc;

@@ -311,44 +311,46 @@ def lane_prologue(lanes, sched, fr):
         run_op(lanes, fr, op, False, False, False)
 
 
-def to_lanes(cols):
-    """(NL, R) digit columns → (32, R) int64 rows, 0 at positions 30, 31."""
-    return torch.cat([cols.long(), torch.zeros((2, cols.shape[1]), dtype=torch.int64)])
+def to_lanes(cols, row=32):
+    """(NL, R) digit columns → (row, R) int64 rows, 0 from NL (the 13-bit
+    field's rows of 32; the 8-bit field's of 64)."""
+    return torch.cat([cols.long(),
+                      torch.zeros((row - cols.shape[0], cols.shape[1]), dtype=torch.int64)])
 
 
-def from_lanes(x):
-    assert not x[NL:].any(), "positions 30 and 31 must hold 0 between operations"
-    return x[:NL].to(torch.int32)
+def from_lanes(x, nl=NL):
+    assert not x[nl:].any(), "the positions from NL must hold 0 between operations"
+    return x[:nl].to(torch.int32)
 
 
-def comps(n_acc, pt):
+def comps(n_acc, pt, row=32):
     """(X, Y, Z) columns as the n_acc slot rows, (x, y, z) × (re, im)."""
     if n_acc == 3:
-        return [to_lanes(c) for c in pt]
+        return [to_lanes(c, row) for c in pt]
     R = pt[0].shape[1] // 2
-    return [to_lanes(h) for c in pt for h in (c[:, :R], c[:, R:])]
+    return [to_lanes(h, row) for c in pt for h in (c[:, :R], c[:, R:])]
 
 
-def point_of(n_acc, rows):
+def point_of(n_acc, rows, nl=NL):
     """Slot rows back as (X, Y, Z) columns."""
-    parts = [from_lanes(x) for x in rows]
+    parts = [from_lanes(x, nl) for x in rows]
     if n_acc == 3:
         return tuple(parts)
     return tuple(torch.cat(parts[2 * c: 2 * c + 2], dim=1) for c in range(3))
 
 
-def frame_of(sched, acc, base):
+def frame_of(sched, acc, base, row=32):
     """A frame for one step of ``sched``: acc in the set it reads, base's
     coordinates in the base block (the prologue fills the rest)."""
     rows = [None] * sched.n_slots
-    rows[sched.in_rows.start:sched.in_rows.stop] = comps(sched.n_acc, acc)
-    return Frame(rows, comps(sched.n_acc, base), [None] * (sched.entry_rows - sched.n_acc),
+    rows[sched.in_rows.start:sched.in_rows.stop] = comps(sched.n_acc, acc, row)
+    return Frame(rows, comps(sched.n_acc, base, row), [None] * (sched.entry_rows - sched.n_acc),
                  sched.n_acc)
 
 
-def result(sched, fr):
+def result(sched, fr, nl=NL):
     """The point a step wrote, from the set it writes."""
-    return point_of(sched.n_acc, fr.rows[sched.out_rows.start:sched.out_rows.stop])
+    return point_of(sched.n_acc, fr.rows[sched.out_rows.start:sched.out_rows.stop], nl)
 
 
 def _digits(rng, shape, extreme_cols=1):
@@ -559,12 +561,19 @@ def test_lane_model_window_tables_match_plain(group, kind):
     ops = G.LAZY_FP2_OPS if group == "g2" else G.LAZY_FP_OPS
     ref = G.point_double(ops, acc) if kind == "dbl" else G.point_add_raw(ops, acc, base)
 
-    sched, lanes = S.build(group, kind), LANES[4]
-    fr = frame_of(sched, acc, base)
+    for g, r in zip(lane_table(group, kind, LANES[4], acc, base), ref):
+        assert torch.equal(g, r)
+
+
+def lane_table(group, kind, lanes, acc, base, row=32, nl=NL):
+    """One table of ``kind`` (dbl or addp) from the kernel's tables on a
+    lane model of a field (``lanes``: its mul, add and sub on rows of
+    ``row`` words), the prologue first; the point it wrote."""
+    sched = S.build(group, kind)
+    fr = frame_of(sched, acc, base, row)
     lane_prologue(lanes, sched, fr)
     walk(sched, lambda op: run_op(lanes, fr, op, None, None, None))
-    for g, r in zip(result(sched, fr), ref):
-        assert torch.equal(g, r)
+    return result(sched, fr, nl)
 
 
 def test_ladder_kernel_wrapper_takes_only_cuda_tensors():

@@ -81,21 +81,23 @@ def test_window_plain_digit_exact_with_reference():
         assert np.array_equal(np.asarray(r), g.numpy().T)
 
 
-def lane_window(group, pt, bits, base_inf, K):
+def lane_window(group, pt, bits, base_inf, K, lanes=None, row=32, nl=F.NL):
     """``ladder_window.cu`` from its tables on the lane model at K elements
-    a warp: P's prologue; the table of coordinates (entry k − 1 from entry
-    src, copied into A, by an addp or dbl step A→B with entry 0 and P's
-    prologue the base, the result copied out); then per window dbl A→B
-    with the prologue of the window's entry beside it, dbl B→A, dbl A→B and
-    the bitwise table's step B→A whose base is each row's own entry."""
+    a warp (``lanes``; the 8-bit field's model runs ``ladder_mxu.cu``, on
+    rows of ``row`` words, ``nl`` digits): P's prologue; the table of
+    coordinates (entry k − 1 from entry src, copied into A, by an addp or
+    dbl step A→B with entry 0 and P's prologue the base, the result copied
+    out); then per window dbl A→B with the prologue of the window's entry
+    beside it, dbl B→A, dbl A→B and the bitwise table's step B→A whose base
+    is each row's own entry."""
     tab = {(k, s): S.build(group, k, s) for k, s in
            (("step", "BA"), ("dbl", "BA"), ("dbl", "AB"), ("addp", "AB"), ("dblpro", "AB"))}
     step = tab["step", "BA"]
-    lanes = lanes_mod.LANES[K]
+    lanes = lanes_mod.LANES[K] if lanes is None else lanes
     n = step.n_acc
     rows = [None] * step.n_slots  # A, B, the temporaries
     pro = [None] * (step.entry_rows - n)  # the base block's prologue values
-    table = [lanes_mod.comps(n, pt)]  # entry e: (e + 1)·P, coordinates
+    table = [lanes_mod.comps(n, pt, row)]  # entry e: (e + 1)·P, coordinates
     lanes_mod.lane_prologue(lanes, step, lanes_mod.Frame(rows, table[0], pro, n))
 
     def run(sched, base, bit=None, inf=None, binf=None):  # only a select reads the flags
@@ -119,7 +121,7 @@ def lane_window(group, pt, bits, base_inf, K):
         run(tab["dbl", "AB"], None)
         fr = lanes_mod.Frame(rows, base, pro, n)
         inf = lanes_mod.lane_step(lanes, step, fr, inf, base_inf, idx != 0)
-    return lanes_mod.point_of(n, rows[:n]), inf
+    return lanes_mod.point_of(n, rows[:n], nl), inf
 
 
 @pytest.mark.parametrize("K", [1, 2, 4])
